@@ -1,0 +1,1106 @@
+"""The static stream-processing topology (paper §IV-B / §IV-F) — the
+PyTorch port of the JAX package's single-device engine round.
+
+One round implements the four stages common to every pipeline:
+
+    1. subscriber dispatching   (fan-out via the routing tables)
+    2. data fetching            (gather co-input last values — lock-free)
+    3. transformation & filtering (bytecode VM + Listing-2 consistency)
+    4. store, trigger actions and emit
+
+Tenants' pipelines — routing tables, bytecode, constants — are tensors the
+round reads, so creating, rewiring or re-programming a pipeline is a table
+edit.  Each round ingests/pops a *batch* of SUs and advances every live SU
+by exactly one hop.
+
+The round runs on the tensors' device.  On the card its two hot kernels
+are hand-written CUDA (``kernels/round_fuse`` for the default fused path,
+``kernels/sched_pop`` for the staged path's pop); everything around them
+is plain torch.  Every function here returns new tensors where the JAX
+package returned new arrays, except where a docstring says it updates in
+place.  Index semantics follow XLA: gathers clamp out-of-range indices,
+and a scatter's out-of-range writes (the ``mode="drop"`` sentinel rows)
+land in a pad row that is sliced off.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import consistency, program as pvm
+from repro_torch.core.config import EngineConfig
+from repro_torch.core.registry import EngineTables, Registry
+from repro_torch.kernels.round_fuse import ref as rf_ref
+
+INT_MIN = int(np.iinfo(np.int32).min) + 1
+INT_MAX = int(np.iinfo(np.int32).max)
+
+# Virtual-time granularity of the weighted-fair pop: a tenant with weight w
+# advances its virtual clock by FAIR_SCALE // w per queued SU; weight 0
+# exempts the tenant from shaping (its SUs carry tag 0).
+FAIR_SCALE = 1 << 15
+# Within-tenant ranks saturate here so rank * FAIR_SCALE // weight stays
+# inside int32 (kernels/sched_pop/ref.py applies the same clamp).
+RANK_LIM = INT_MAX // FAIR_SCALE - 1
+# Quota and burst clip here so the per-round refill tokens + quota cannot
+# overflow int32.
+QUOTA_MAX = (INT_MAX >> 1) - 1
+
+I32, F32, BOOL = torch.int32, torch.float32, torch.bool
+
+
+class DeviceTables(NamedTuple):
+    """Device image of :class:`~repro_torch.core.registry.EngineTables`:
+    the per-stream routing/program tables (leading dim ``n_streams``) plus
+    the per-tenant QoS tables (leading dim ``n_tenants``) and the breaker
+    knobs.  All of it is data to the round; the QoS and breaker knobs are
+    edited in place by ``StreamEngine.set_weight``/``set_quota``/
+    ``set_breaker``."""
+    in_table: torch.Tensor      # (N, max_in) int32 input sids, -1 pad
+    in_count: torch.Tensor      # (N,) int32
+    out_table: torch.Tensor     # (N, max_out) int32 subscriber sids, -1 pad
+    out_count: torch.Tensor     # (N,) int32
+    progs: torch.Tensor         # (N, prog_len, 4) int32 VM bytecode
+    consts: torch.Tensor        # (N, n_consts) float32 constant pools
+    is_composite: torch.Tensor  # (N,) bool
+    tenant: torch.Tensor        # (N,) int32 owning tenant id
+    priority: torch.Tensor      # (N,) int32, lower = served first (§IV-E)
+    n_channels: torch.Tensor    # (N,) int32
+    model_backed: torch.Tensor  # (N,) bool — serviced by the model plane
+    active: torch.Tensor        # (N,) live-row mask
+    weight: torch.Tensor        # (T,) int32 fair-share weight; 0 = unshaped
+    quota: torch.Tensor         # (T,) int32 tokens refilled/round; 0 = no cap
+    burst: torch.Tensor         # (T,) int32 token-bucket capacity
+    breaker: torch.Tensor       # (3,) int32 [window W, threshold F, amp ceil]
+
+    @classmethod
+    def from_host(cls, t: EngineTables, device) -> "DeviceTables":
+        """Move every host (numpy) table of ``t`` onto ``device``
+        unchanged in shape and dtype."""
+        return cls(**{f: _tensor(getattr(t, f), device) for f in cls._fields})
+
+
+class EngineState(NamedTuple):
+    """The mutable half of one engine: last values, the pending-SU queue,
+    the durability leaves, the fault plane and the counters (same fields,
+    shapes and dtypes as the JAX package's ``EngineState``)."""
+    values: torch.Tensor        # (N, C) last value per stream
+    timestamps: torch.Tensor    # (N,) int32 last emission ts (INT_MIN = never)
+    q_sid: torch.Tensor         # (Q,)
+    q_vals: torch.Tensor        # (Q, C)
+    q_ts: torch.Tensor          # (Q,)
+    q_its: torch.Tensor         # (Q,) ingest stamp (round of first ingest)
+    q_seq: torch.Tensor         # (Q,) FIFO tiebreaker
+    q_valid: torch.Tensor       # (Q,) bool
+    seq: torch.Tensor           # scalar int32
+    tenant_emitted: torch.Tensor  # (T,) emissions per owning tenant
+    tokens: torch.Tensor        # (T,) ingest token buckets (quota plane)
+    tenant_queued: torch.Tensor   # (T,) queue occupancy after the round
+    tenant_dropped_quota: torch.Tensor     # (T,) SUs shed over quota
+    tenant_dropped_overflow: torch.Tensor  # (T,) queue drops
+    ret_vals: torch.Tensor      # (N, Rr, C) per-stream retained emissions
+    ret_ts: torch.Tensor        # (N, Rr) their timestamps
+    ret_its: torch.Tensor       # (N, Rr) their ingest stamps
+    ret_count: torch.Tensor     # (N,) emissions ever retained (ring cursor)
+    dlq_sid: torch.Tensor       # (D,) dead-letter stream ids
+    dlq_vals: torch.Tensor      # (D, C) dead-letter payloads
+    dlq_ts: torch.Tensor        # (D,) dead-letter timestamps
+    dlq_its: torch.Tensor       # (D,) dead-letter ingest stamps
+    dlq_reason: torch.Tensor    # (D,) drop class (see DLQ_REASONS)
+    dlq_tenant: torch.Tensor    # (D,) charged tenant
+    dlq_fill: torch.Tensor      # scalar int32 spool cursor
+    quarantined: torch.Tensor   # (N,) bool — breaker-tripped rows
+    fault_count: torch.Tensor   # (N,) int32 faults inside the current window
+    fault_epoch: torch.Tensor   # (N,) int32 round the current window opened
+    fault_total: torch.Tensor   # (N,) int32 lifetime faults
+    round_idx: torch.Tensor     # scalar int32 device round counter
+    stats: Dict[str, torch.Tensor]
+
+
+class IngestBatch(NamedTuple):
+    """One round's external Sensor Updates, padded to ``cfg.batch`` rows
+    (``valid`` masks the live ones)."""
+    sid: torch.Tensor           # (B,) int32
+    vals: torch.Tensor          # (B, C) float32
+    ts: torch.Tensor            # (B,) int32 event timestamps
+    valid: torch.Tensor         # (B,) bool
+    its: torch.Tensor           # (B,) int32 ingest stamps
+
+
+class SinkBatch(NamedTuple):
+    """Per-round external emissions: the first ``sink_buffer`` winners."""
+    sid: torch.Tensor           # (S,)
+    vals: torch.Tensor          # (S, C)
+    ts: torch.Tensor            # (S,)
+    valid: torch.Tensor         # (S,) bool
+    its: torch.Tensor           # (S,) int32 ingest stamps
+
+
+class DeadLetter(NamedTuple):
+    """One recovered drop, drained by ``StreamEngine.dead_letters()``."""
+    sid: int
+    vals: np.ndarray
+    ts: int
+    reason: str
+    tenant: int
+    its: int = 0
+
+
+STAT_KEYS = (
+    "ingested", "ingest_stale", "ingest_coalesced",
+    "processed", "discarded_stale", "filtered", "coalesced",
+    "emitted", "enqueued", "dropped_overflow", "nonfinite",
+    "dropped_revoked", "dropped_spool", "dropped_quota",
+    "replayed",
+    # queue-flow conservation: queued_in == popped + purged + occupancy
+    "queued_in", "popped", "purged",
+    "dropped_poisoned", "redeliver_rejected",
+)
+
+# Dead-letter drop classes: every ``dropped_*`` stat has a DLQ reason code.
+DLQ_OVERFLOW, DLQ_REVOKED, DLQ_SPOOL, DLQ_QUOTA, DLQ_POISONED = range(5)
+DLQ_REASONS = ("overflow", "revoked", "spool", "quota", "poisoned")
+
+
+# --------------------------------------------------------------------------
+# tensor helpers: XLA's gather/scatter index semantics
+# --------------------------------------------------------------------------
+
+def _tensor(a, device) -> torch.Tensor:
+    """A host array as a tensor of the same dtype on ``device`` (copied, so
+    read-only numpy views are fine)."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=I32)
+
+
+def _cumsum(mask: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(mask.to(I32), 0, dtype=I32)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along dim 0 with XLA's gather rule: a negative index
+    wraps once, then the index clamps into range."""
+    return x[pvm.read_index(idx, x.shape[0])]
+
+
+def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    idx = idx.long()
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+
+
+def _set_drop(t: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """``t.at[idx].set(src, mode="drop")``: rows ``idx`` outside
+    ``[0, len(t))`` are dropped (written to a pad row, then sliced off).
+    In-range indices must be unique."""
+    n = t.shape[0]
+    pad = _padded(t)
+    pad[_drop_index(idx, n)] = src
+    return pad[:n]
+
+
+def _set_drop2(t: torch.Tensor, i: torch.Tensor, j: torch.Tensor, src
+               ) -> torch.Tensor:
+    """``t.at[i, j].set(src, mode="drop")`` for rows ``i`` (dropped when
+    out of range) and in-range columns ``j``."""
+    n = t.shape[0]
+    pad = _padded(t)
+    pad[_drop_index(i, n), j.long()] = src
+    return pad[:n]
+
+
+def _add_drop(t: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``t.at[idx].add(val, mode="drop")`` on a 1-D integer tensor;
+    repeated indices accumulate."""
+    n = t.shape[0]
+    idx = _drop_index(idx, n)
+    src = torch.broadcast_to(torch.as_tensor(val, dtype=t.dtype,
+                                             device=t.device), idx.shape)
+    return _padded(t).index_add_(0, idx, src)[:n]
+
+
+def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort(keys)``: the last key is primary, ties keep index
+    order (stable sorts from the least significant key up)."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+# --------------------------------------------------------------------------
+# state
+# --------------------------------------------------------------------------
+
+def init_state(cfg: EngineConfig, device) -> EngineState:
+    """Fresh all-zero :class:`EngineState` on ``device`` (timestamps at
+    ``INT_MIN`` = never emitted, empty queue, zero counters)."""
+    N, C, Q, T = cfg.n_streams, cfg.channels, cfg.queue, cfg.n_tenants
+    Rr, D = cfg.retention_slots, cfg.dlq_slots
+
+    def z(shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return EngineState(
+        values=z((N, C), F32),
+        timestamps=torch.full((N,), INT_MIN, dtype=I32, device=device),
+        q_sid=z((Q,)), q_vals=z((Q, C), F32), q_ts=z((Q,)), q_its=z((Q,)),
+        q_seq=z((Q,)), q_valid=z((Q,), BOOL), seq=z(()),
+        tenant_emitted=z((T,)), tokens=z((T,)), tenant_queued=z((T,)),
+        tenant_dropped_quota=z((T,)), tenant_dropped_overflow=z((T,)),
+        ret_vals=z((N, Rr, C), F32), ret_ts=z((N, Rr)), ret_its=z((N, Rr)),
+        ret_count=z((N,)),
+        dlq_sid=z((D,)), dlq_vals=z((D, C), F32), dlq_ts=z((D,)),
+        dlq_its=z((D,)), dlq_reason=z((D,)), dlq_tenant=z((D,)),
+        dlq_fill=z(()),
+        quarantined=z((N,), BOOL), fault_count=z((N,)), fault_epoch=z((N,)),
+        fault_total=z((N,)), round_idx=z(()),
+        stats={k: z(()) for k in STAT_KEYS},
+    )
+
+
+def dlq_append(state: EngineState, sid, vals, ts, tenant, reason: int, mask,
+               its=None) -> EngineState:
+    """Spill the masked dropped SUs into the dead-letter spool behind
+    ``dlq_fill``; letters beyond ``cfg.dlq_slots`` are lost (the
+    ``dropped_*`` stats still count them), and with ``dlq_slots == 0``
+    this is a no-op.  ``tenant=None`` records the sentinel ``-1``;
+    ``its=None`` records stamp 0."""
+    D = state.dlq_sid.shape[0]
+    if D == 0:
+        return state
+    if tenant is None:
+        tenant = torch.full_like(sid, -1)
+    if its is None:
+        its = torch.zeros_like(sid)
+    rank = state.dlq_fill + _cumsum(mask) - 1
+    dest = torch.where(mask & (rank < D), rank, D)
+    return state._replace(
+        dlq_sid=_set_drop(state.dlq_sid, dest, sid),
+        dlq_vals=_set_drop(state.dlq_vals, dest, vals),
+        dlq_ts=_set_drop(state.dlq_ts, dest, ts),
+        dlq_its=_set_drop(state.dlq_its, dest, its),
+        dlq_reason=_set_drop(state.dlq_reason, dest, reason),
+        dlq_tenant=_set_drop(state.dlq_tenant, dest, tenant),
+        dlq_fill=torch.clamp(state.dlq_fill + _count(mask), max=D),
+    )
+
+
+# --------------------------------------------------------------------------
+# queue helpers
+# --------------------------------------------------------------------------
+
+def _first_free(q_valid: torch.Tensor, X: int, fast: bool = False
+                ) -> torch.Tensor:
+    """Indices of the first ``X`` free queue slots, ascending, padded with
+    ``Q`` (int32).  ``fast=True`` (the fused round) is the cumsum +
+    searchsorted search of :mod:`repro_torch.kernels.round_fuse.ref`; the
+    staged round sorts the free-slot indices (the one torch form of both
+    the X-step selection loop and the ``nonzero`` scatter the JAX package
+    switches between by width — same result)."""
+    if fast:
+        return rf_ref.first_free_slots(q_valid, X)
+    Q = q_valid.shape[0]
+    iota = torch.arange(Q, dtype=I32, device=q_valid.device)
+    free = torch.sort(torch.where(~q_valid, iota, Q)).values[:X]
+    if X > Q:
+        free = torch.cat([free, free.new_full((X - Q,), Q)])
+    return free
+
+
+def _enqueue(state: EngineState, sid, vals, ts, mask, tenant=None,
+             fast_free: bool = False, its=None
+             ) -> Tuple[EngineState, torch.Tensor]:
+    """Append masked items into free queue slots; returns ``(state,
+    #dropped)``.  With ``tenant`` (an (X,) tenant id per item, negative =
+    unknown owner) overflow drops are charged per tenant.  Sequence
+    numbers advance on accept only."""
+    Q = state.q_valid.shape[0]
+    X = sid.shape[0]
+    if its is None:
+        its = torch.zeros_like(sid)
+    free = _first_free(state.q_valid, X, fast_free)
+    rank = _cumsum(mask) - 1
+    dest = torch.where(mask, free[torch.clamp(rank, 0, X - 1).long()], Q)
+    ok = mask & (dest < Q)
+    dest = torch.where(ok, dest, Q)
+    seq_nos = state.seq + _cumsum(ok)
+    new = state._replace(
+        q_sid=_set_drop(state.q_sid, dest, sid),
+        q_vals=_set_drop(state.q_vals, dest, vals),
+        q_ts=_set_drop(state.q_ts, dest, ts),
+        q_its=_set_drop(state.q_its, dest, its),
+        q_seq=_set_drop(state.q_seq, dest, seq_nos),
+        q_valid=_set_drop(state.q_valid, dest, True),
+        seq=state.seq + _count(ok),
+    )
+    drop_mask = mask & ~ok
+    if tenant is not None:
+        T = state.tenant_dropped_overflow.shape[0]
+        new = new._replace(tenant_dropped_overflow=_add_drop(
+            new.tenant_dropped_overflow,
+            torch.where(drop_mask & (tenant >= 0), tenant, T), 1))
+    new = dlq_append(new, sid, vals, ts, tenant, DLQ_OVERFLOW, drop_mask,
+                     its=its)
+    return new, _count(drop_mask)
+
+
+def _tenant_rank(mask: torch.Tensor, tenant_idx: torch.Tensor,
+                 n_tenants: int) -> torch.Tensor:
+    """0-based rank of each masked item among masked items of the same
+    tenant, in array order (unmasked lanes read an arbitrary value)."""
+    t = tenant_idx.long()
+    onehot = mask[:, None] & (
+        t[:, None] == torch.arange(n_tenants, device=t.device)[None, :])
+    ranks = torch.cumsum(onehot.to(I32), 0, dtype=I32) - 1
+    return ranks.gather(1, pvm.read_index(t, n_tenants)[:, None])[:, 0]
+
+
+def _pop(state: EngineState, priority_by_sid: torch.Tensor, batch: int,
+         tenant_by_sid: Optional[torch.Tensor] = None,
+         weight: Optional[torch.Tensor] = None,
+         scheduler: str = "packed", use_kernel: Optional[bool] = None):
+    """Pop up to ``batch`` queued SUs, lowest ``(priority, virtual fair
+    tag, seq)`` first — the §IV-E priority pop composed with weighted-fair
+    queueing across tenants (see the JAX package's ``_pop``).
+
+    ``"packed"`` is the selection pop of :mod:`repro_torch.kernels.sched_pop`
+    (the CUDA kernel on the card); ``"lexsort"`` the two-full-sort oracle.
+    Both return the same slots.  Returns ``(state, (sid, vals, ts, its,
+    valid))``."""
+    if scheduler == "packed":
+        from repro_torch.kernels.sched_pop.ops import sched_pop
+        prio_slot = _take(priority_by_sid, state.q_sid)
+        if tenant_by_sid is None:
+            t_slot = torch.zeros_like(state.q_sid)
+            w_slot = torch.zeros_like(state.q_sid)
+        else:
+            T = weight.shape[0]
+            t_slot = torch.clamp(_take(tenant_by_sid, state.q_sid), 0, T - 1)
+            w_slot = weight[t_slot.long()]
+        take, popped = sched_pop(prio_slot, state.q_seq, state.q_valid,
+                                 t_slot, w_slot, state.q_sid, state.q_vals,
+                                 state.q_ts, batch, use_kernel=use_kernel)
+        p_sid, p_vals, p_ts, p_valid = popped
+        t = take.long()
+        q_valid = state.q_valid.clone()
+        q_valid[t] = False
+        return state._replace(q_valid=q_valid), \
+            (p_sid, p_vals, p_ts, state.q_its[t], p_valid)
+    key = torch.where(state.q_valid, _take(priority_by_sid, state.q_sid),
+                      INT_MAX)
+    if tenant_by_sid is None:
+        order = _lexsort(state.q_seq, key)
+    else:
+        T = weight.shape[0]
+        order0 = _lexsort(state.q_seq, key)        # (priority, seq) order
+        t_sort = torch.clamp(_take(tenant_by_sid, state.q_sid), 0,
+                             T - 1)[order0]
+        v_sort = state.q_valid[order0]
+        rank = _tenant_rank(v_sort, t_sort, T)     # within-tenant rank
+        w = weight[t_sort.long()]
+        rank = torch.clamp(rank, max=RANK_LIM)     # int32-safe tags
+        vtag = torch.where(v_sort & (w > 0),
+                           rank * FAIR_SCALE // torch.clamp(w, min=1), 0)
+        reorder = _lexsort(state.q_seq[order0], vtag, key[order0])
+        order = order0[reorder]
+    take = order[:batch]
+    q_valid = state.q_valid.clone()
+    popped = (state.q_sid[take], state.q_vals[take], state.q_ts[take],
+              state.q_its[take], q_valid[take])
+    q_valid[take] = False
+    return state._replace(q_valid=q_valid), popped
+
+
+# --------------------------------------------------------------------------
+# phase 0 / stage 4
+# --------------------------------------------------------------------------
+
+def _inc(stats: Dict[str, torch.Tensor], key: str, v: torch.Tensor) -> None:
+    stats[key] = stats[key] + v
+
+
+def ingest_phase(state: EngineState, stats: Dict[str, torch.Tensor],
+                 ingest: IngestBatch, row, q_sid, active, n_rows: int,
+                 tenant_of_row=None, quota=None, burst=None,
+                 fast_free: bool = False, quarantined=None
+                 ) -> Tuple[EngineState, Dict[str, torch.Tensor]]:
+    """Phase 0: admit external SUs — quota gate, store last value and
+    timestamp, enqueue for dispatch.  SUs addressed to revoked rows drop
+    into ``dropped_revoked``, to quarantined rows into
+    ``dropped_poisoned`` (both dead-lettered).  With the QoS args each
+    tenant's token bucket refills by ``quota[t]`` per round up to
+    ``burst[t]``; arrivals beyond it are shed into ``dropped_quota``.
+    ``stats`` is updated in place (its tensors are replaced)."""
+    if quarantined is None:
+        quarantined = torch.zeros_like(active)
+    arrive = ingest.valid & active & ~quarantined
+    if tenant_of_row is None:
+        i_live = arrive
+    else:
+        T = quota.shape[0]
+        t_of = torch.clamp(tenant_of_row, 0, T - 1)
+        tokens = torch.minimum(state.tokens + quota, burst)
+        arrival_no = _tenant_rank(arrive, t_of, T)
+        in_quota = (quota[t_of.long()] == 0) | (arrival_no < tokens[t_of.long()])
+        shed = arrive & ~in_quota
+        i_live = arrive & in_quota
+        spent = torch.zeros((T,), dtype=I32, device=t_of.device).index_add_(
+            0, t_of.long(), (arrive & in_quota).to(I32))
+        state = state._replace(
+            tokens=torch.where(quota > 0, tokens - spent, tokens),
+            tenant_dropped_quota=_add_drop(
+                state.tenant_dropped_quota, torch.where(shed, t_of, T), 1))
+        _inc(stats, "dropped_quota", _count(shed))
+        state = dlq_append(state, q_sid, ingest.vals, ingest.ts, t_of,
+                           DLQ_QUOTA, shed, its=ingest.its)
+    i_keep = i_live & (ingest.ts > _take(state.timestamps, row))
+    i_win = consistency.resolve_winners(row, ingest.ts, i_keep, n_rows)
+    i_dest = torch.where(i_win, row, n_rows)
+    state = state._replace(
+        values=_set_drop(state.values, i_dest, ingest.vals),
+        timestamps=_set_drop(state.timestamps, i_dest, ingest.ts),
+    )
+    Rr = state.ret_ts.shape[-1]
+    if Rr:                          # a source's stored SU is its emission
+        slot = _take(state.ret_count, row) % Rr
+        state = state._replace(
+            ret_vals=_set_drop2(state.ret_vals, i_dest, slot, ingest.vals),
+            ret_ts=_set_drop2(state.ret_ts, i_dest, slot, ingest.ts),
+            ret_its=_set_drop2(state.ret_its, i_dest, slot, ingest.its),
+            ret_count=_add_drop(state.ret_count, i_dest, 1))
+    revoked = ingest.valid & ~active
+    _inc(stats, "ingested", _count(ingest.valid))
+    _inc(stats, "dropped_revoked", _count(revoked))
+    state = dlq_append(state, q_sid, ingest.vals, ingest.ts, tenant_of_row,
+                       DLQ_REVOKED, revoked, its=ingest.its)
+    i_poison = ingest.valid & active & quarantined
+    _inc(stats, "dropped_poisoned", _count(i_poison))
+    state = dlq_append(state, q_sid, ingest.vals, ingest.ts, tenant_of_row,
+                       DLQ_POISONED, i_poison, its=ingest.its)
+    _inc(stats, "ingest_stale", _count(i_live & ~i_keep))
+    _inc(stats, "ingest_coalesced", _count(i_keep & ~i_win))
+    state, dropped = _enqueue(state, q_sid, ingest.vals, ingest.ts, i_win,
+                              tenant_of_row, fast_free, its=ingest.its)
+    _inc(stats, "dropped_overflow", dropped)
+    _inc(stats, "queued_in", _count(i_win) - dropped)
+    return state, stats
+
+
+def store_and_emit(cfg: EngineConfig, tables: DeviceTables,
+                   state: EngineState, stats: Dict[str, torch.Tensor],
+                   rows, emit_sid, order, new_vals, ts_out, keep,
+                   n_rows: int, fast_free: bool = False, wi_its=None
+                   ) -> Tuple[EngineState, Dict[str, torch.Tensor], SinkBatch]:
+    """Stage 4: coalesce winners, store them, account per-tenant
+    emissions, re-enqueue winners that have subscribers, and fill the
+    external sink buffer.  ``rows`` (W,) are in-range target rows,
+    ``order`` the coalescing tie key (the trigger sid)."""
+    S, C = cfg.sink_buffer, cfg.channels
+    if wi_its is None:
+        wi_its = torch.zeros_like(emit_sid)
+    win = consistency.resolve_winners(rows, ts_out, keep, n_rows, order=order)
+    _inc(stats, "coalesced", _count(keep & ~win))
+    _inc(stats, "emitted", _count(win))
+    dest = torch.where(win, rows, n_rows)
+    owner = _take(tables.tenant, rows)
+    state = state._replace(
+        values=_set_drop(state.values, dest, new_vals),
+        timestamps=_set_drop(state.timestamps, dest, ts_out),
+        tenant_emitted=_add_drop(state.tenant_emitted,
+                                 torch.where(win, owner, cfg.n_tenants), 1),
+    )
+    Rr = cfg.retention_slots
+    if Rr:
+        slot = _take(state.ret_count, rows) % Rr
+        state = state._replace(
+            ret_vals=_set_drop2(state.ret_vals, dest, slot, new_vals),
+            ret_ts=_set_drop2(state.ret_ts, dest, slot, ts_out),
+            ret_its=_set_drop2(state.ret_its, dest, slot, wi_its),
+            ret_count=_add_drop(state.ret_count, dest, 1),
+        )
+    # re-dispatch winners that themselves have subscribers (queue drops
+    # charged to the emitting stream's owner tenant)
+    fanout_more = win & (_take(tables.out_count, rows) > 0)
+    state, dropped = _enqueue(state, emit_sid, new_vals, ts_out, fanout_more,
+                              owner, fast_free, its=wi_its)
+    _inc(stats, "dropped_overflow", dropped)
+    _inc(stats, "enqueued", _count(fanout_more))
+    _inc(stats, "queued_in", _count(fanout_more) - dropped)
+
+    # external sink buffer: first `sink_buffer` winners this round
+    sink_rank = _cumsum(win) - 1
+    sdest = torch.where(win & (sink_rank < S), sink_rank, S)
+    dev = rows.device
+    sink = SinkBatch(
+        sid=_set_drop(torch.zeros((S,), dtype=I32, device=dev), sdest,
+                      emit_sid),
+        vals=_set_drop(torch.zeros((S, C), dtype=F32, device=dev), sdest,
+                       new_vals),
+        ts=_set_drop(torch.zeros((S,), dtype=I32, device=dev), sdest, ts_out),
+        valid=_set_drop(torch.zeros((S,), dtype=BOOL, device=dev), sdest,
+                        True),
+        its=_set_drop(torch.zeros((S,), dtype=I32, device=dev), sdest,
+                      wi_its),
+    )
+    return state, stats, sink
+
+
+def tenant_occupancy(state: EngineState, tenant_by_sid: torch.Tensor,
+                     n_tenants: int) -> torch.Tensor:
+    """Per-tenant pending-SU queue occupancy (the backpressure signal)."""
+    q_t = torch.clamp(_take(tenant_by_sid, state.q_sid), 0, n_tenants - 1)
+    onehot = (q_t[:, None] == torch.arange(n_tenants, device=q_t.device)
+              [None, :]) & state.q_valid[:, None]
+    return onehot.sum(dim=0, dtype=I32)
+
+
+# --------------------------------------------------------------------------
+# fault-isolation plane
+# --------------------------------------------------------------------------
+
+def fault_events(breaker, badf, wi_valid, t_row, fan, e_valid, e_row,
+                 n_rows: int) -> torch.Tensor:
+    """One round's per-row fault mask: non-finite program results charged
+    to the target row, and fan-outs over ``breaker[2]`` charged to the
+    source row (ceiling 0 disables that class).  Any-reductions: a row
+    faults at most once per round."""
+    dev = badf.device
+    nf_row = _set_drop(torch.zeros((n_rows,), dtype=BOOL, device=dev),
+                       torch.where(badf & wi_valid, t_row, n_rows), True)
+    amp = (breaker[2] > 0) & e_valid & (fan > breaker[2])
+    amp_row = _set_drop(torch.zeros((n_rows,), dtype=BOOL, device=dev),
+                        torch.where(amp, e_row, n_rows), True)
+    return nf_row | amp_row
+
+
+def fault_phase(state: EngineState, stats: Dict[str, torch.Tensor],
+                breaker, fault_evt, active, tenant_of_row, q_row
+                ) -> Tuple[EngineState, Dict[str, torch.Tensor]]:
+    """Advance the per-stream circuit breaker one round and quarantine the
+    rows that tripped: the first fault opens a W-round window, faults
+    inside it count up, a fault after expiry restarts it at 1, a
+    fault-free round past expiry decays it to 0; an active,
+    not-yet-quarantined row reaching ``F > 0`` trips, and its queued SUs
+    purge to the DLQ as ``poisoned`` this same round."""
+    W, F = breaker[0], breaker[1]
+    rid = state.round_idx
+    in_win = (rid - state.fault_epoch) < W
+    restart = fault_evt & (~in_win | (state.fault_count == 0))
+    count = torch.where(
+        fault_evt,
+        torch.where(restart, 1, state.fault_count + 1),
+        torch.where(in_win, state.fault_count, 0)).to(I32)
+    epoch = torch.where(restart, rid, state.fault_epoch)
+    trip = (F > 0) & (count >= F) & active & ~state.quarantined
+    quarantined = state.quarantined | trip
+    state = state._replace(
+        quarantined=quarantined, fault_count=count, fault_epoch=epoch,
+        fault_total=state.fault_total + fault_evt.to(I32),
+        round_idx=rid + 1,
+    )
+    hit = state.q_valid & quarantined[q_row.long()]
+    n_hit = _count(hit)
+    _inc(stats, "dropped_poisoned", n_hit)
+    _inc(stats, "purged", n_hit)
+    state = dlq_append(state, state.q_sid, state.q_vals, state.q_ts,
+                       tenant_of_row[q_row.long()], DLQ_POISONED, hit,
+                       its=state.q_its)
+    return state._replace(q_valid=state.q_valid & ~hit), stats
+
+
+# --------------------------------------------------------------------------
+# stages 1-3 of the staged round
+# --------------------------------------------------------------------------
+
+def fanout_reference(sid, pvalid, out_table) -> torch.Tensor:
+    """Stage 1: expand each event to its subscribers — targets (B, F), -1
+    where there is none or the event is not valid.  (The JAX package's
+    optional early stale mask is not ported: the round applies that check
+    in ``process_work_items``' keep mask.)"""
+    targets = _take(out_table, torch.clamp(sid, 0, out_table.shape[0] - 1))
+    return torch.where((targets >= 0) & pvalid[:, None], targets, -1)
+
+
+def process_work_items(cfg: EngineConfig, tables: DeviceTables, rows, t_sid,
+                       wi_src, wi_vals, wi_ts, wi_valid, values_by_sid,
+                       timestamps_by_sid):
+    """Data fetching + transformation/filtering for a work-item batch (the
+    full 29-opcode VM in plain torch).  Returns ``(new_vals, ts_out,
+    live, keep, counts, badf)``: counts holds the stage-3 stat increments,
+    ``badf`` flags non-finite VM results before ``wi_valid`` masking."""
+    layout = rf_ref.RegLayout.from_cfg(cfg)
+    regs_out, ts_in, in_valid, prev_ts = rf_ref.fetch_and_run(
+        layout, tables.in_table, tables.progs, tables.consts, rows, t_sid,
+        wi_src, wi_vals, wi_ts, values_by_sid, timestamps_by_sid)
+    new_vals, ts_out, keep_ts, passf, badf = rf_ref.verdict(
+        layout, regs_out, wi_ts, prev_ts, ts_in, in_valid)
+    r = rows.long()
+    live = wi_valid & tables.is_composite[r] & tables.active[r]
+    keep = live & keep_ts & passf
+    counts = {
+        "processed": _count(live),
+        "discarded_stale": _count(live & ~keep_ts),
+        "filtered": _count(live & keep_ts & ~passf),
+        "nonfinite": _count(badf & wi_valid),
+    }
+    return new_vals, ts_out, live, keep, counts, badf
+
+
+# --------------------------------------------------------------------------
+# the step
+# --------------------------------------------------------------------------
+
+def make_step(cfg: EngineConfig, fused: Optional[bool] = None,
+              use_kernel: Optional[bool] = None) -> Callable:
+    """Build the engine round ``step(tables, state, ingest) -> (state,
+    sink)``.  ``fused`` (default ``cfg.fused_round``) runs stages 1-3 as
+    one :func:`~repro_torch.kernels.round_fuse.ops.fused_stages`
+    operation; otherwise the staged pop / fan-out / ``process_work_items``
+    sequence.  Bit-identical for fusable programs; the fused pop is the
+    packed scheduler, so ``scheduler="lexsort"`` always takes the staged
+    path.  ``use_kernel`` is passed to the kernel wrappers (``None``:
+    follow the tensors' device; ``False``: the plain versions on any
+    device, which ``chip_smoke.py`` installs on an engine to compare the
+    kernels with on the card)."""
+    N, F = cfg.n_streams, cfg.max_out
+    B, W, T = cfg.batch, cfg.work, cfg.n_tenants
+    if fused is None:
+        fused = cfg.fused_round
+    fused = fused and cfg.scheduler == "packed"
+
+    def ingest(tables, state, batch):
+        stats = dict(state.stats)
+        i_sid = torch.clamp(batch.sid, 0, N - 1)
+        i_row = i_sid.long()
+        return ingest_phase(state, stats, batch, i_sid, i_sid,
+                            tables.active[i_row], N, tables.tenant[i_row],
+                            tables.quota, tables.burst, fast_free=fused,
+                            quarantined=state.quarantined[i_row])
+
+    def drop_dead_events(tables, state, stats, e_sid, e_vals, e_ts, e_its,
+                         e_pop):
+        # events whose stream was revoked/quarantined while queued drop
+        # here (split so triage can tell the two apart)
+        e_row = torch.clamp(e_sid, 0, N - 1)
+        r = e_row.long()
+        e_real = tables.active[r]
+        e_poison = e_pop & e_real & state.quarantined[r]
+        _inc(stats, "dropped_revoked", _count(e_pop & ~e_real))
+        state = dlq_append(state, e_sid, e_vals, e_ts, tables.tenant[r],
+                           DLQ_REVOKED, e_pop & ~e_real, its=e_its)
+        _inc(stats, "dropped_poisoned", _count(e_poison))
+        state = dlq_append(state, e_sid, e_vals, e_ts, tables.tenant[r],
+                           DLQ_POISONED, e_poison, its=e_its)
+        return state, e_row, e_real
+
+    def finish(tables, state, stats, badf, wi_valid, t, wi_t, e_valid,
+               e_row):
+        fan = (wi_t.reshape(B, F) >= 0).sum(dim=1, dtype=I32)
+        fault_evt = fault_events(tables.breaker, badf, wi_valid, t, fan,
+                                 e_valid, e_row, N)
+        state, stats = fault_phase(state, stats, tables.breaker, fault_evt,
+                                   tables.active, tables.tenant,
+                                   torch.clamp(state.q_sid, 0, N - 1))
+        return state._replace(stats=stats, tenant_queued=tenant_occupancy(
+            state, tables.tenant, T))
+
+    if fused:
+        from repro_torch.kernels.round_fuse.ops import fused_stages
+        layout = rf_ref.RegLayout.from_cfg(cfg)
+
+        def step(tables: DeviceTables, state: EngineState,
+                 batch: IngestBatch) -> Tuple[EngineState, SinkBatch]:
+            # ---- phase 0: ingest external SUs ---------------------------
+            state, stats = ingest(tables, state, batch)
+            # ---- stages 1-3 fused: pop, fan-out, fetch+VM, window gate --
+            # quarantined rows ride the kernel's active gate; the real
+            # mask is re-read outside so revoked and poisoned drops stay
+            # separately accounted
+            eff_active = tables.active & ~state.quarantined
+            prio_slot = _take(tables.priority, state.q_sid)
+            t_slot = torch.clamp(_take(tables.tenant, state.q_sid), 0, T - 1)
+            w_slot = tables.weight[t_slot.long()]
+            take, (e_sid, e_vals, e_ts, e_pop, e_act), wi_t, applied = \
+                fused_stages(prio_slot, state.q_seq, state.q_valid, t_slot,
+                             w_slot, state.q_sid, state.q_vals, state.q_ts,
+                             B, tables.out_table, tables.in_table,
+                             tables.progs, tables.consts,
+                             tables.is_composite, eff_active,
+                             state.values, state.timestamps, layout,
+                             use_kernel=use_kernel)
+            tk = take.long()
+            e_its = state.q_its[tk]
+            q_valid = state.q_valid.clone()
+            q_valid[tk] = False
+            state = state._replace(q_valid=q_valid)
+            _inc(stats, "popped", _count(e_pop))
+            state, e_row, _ = drop_dead_events(tables, state, stats, e_sid,
+                                               e_vals, e_ts, e_its, e_pop)
+            new_vals, ts_out, live, keep, keep_ts, passf, badf = applied
+            wi_valid = wi_t >= 0
+            _inc(stats, "processed", _count(live))
+            _inc(stats, "discarded_stale", _count(live & ~keep_ts))
+            _inc(stats, "filtered", _count(live & keep_ts & ~passf))
+            _inc(stats, "nonfinite", _count(badf & wi_valid))
+            # ---- stage 4: store, trigger actions and emit ---------------
+            t = torch.clamp(wi_t, 0, N - 1)
+            wi_src = torch.repeat_interleave(e_sid, F)
+            wi_its = torch.repeat_interleave(e_its, F)
+            state, stats, sink = store_and_emit(
+                cfg, tables, state, stats, t, t, wi_src, new_vals, ts_out,
+                keep, N, fast_free=True, wi_its=wi_its)
+            # ---- fault plane: breaker window + device auto-quarantine ---
+            state = finish(tables, state, stats, badf, wi_valid, t, wi_t,
+                           e_pop & e_act, e_row)
+            return state, sink
+
+        return step
+
+    def step(tables: DeviceTables, state: EngineState, batch: IngestBatch
+             ) -> Tuple[EngineState, SinkBatch]:
+        # ---- phase 0: ingest external SUs (quota-gate, store, enqueue) --
+        state, stats = ingest(tables, state, batch)
+        # ---- pop this round's events (weighted-fair across tenants) -----
+        state, (e_sid, e_vals, e_ts, e_its, e_pop) = _pop(
+            state, tables.priority, B, tables.tenant, tables.weight,
+            cfg.scheduler, use_kernel=use_kernel)
+        _inc(stats, "popped", _count(e_pop))
+        state, e_row, e_real = drop_dead_events(tables, state, stats, e_sid,
+                                                e_vals, e_ts, e_its, e_pop)
+        e_valid = e_pop & e_real & ~state.quarantined[e_row.long()]
+        # ---- stage 1: subscriber dispatching ----------------------------
+        wi_t = fanout_reference(e_sid, e_valid, tables.out_table).reshape(W)
+        wi_valid = (wi_t >= 0) & torch.repeat_interleave(e_valid, F)
+        wi_src = torch.repeat_interleave(e_sid, F)
+        wi_vals = torch.repeat_interleave(e_vals, F, dim=0)
+        wi_ts = torch.repeat_interleave(e_ts, F)
+        wi_its = torch.repeat_interleave(e_its, F)
+        t = torch.clamp(wi_t, 0, N - 1)
+        # ---- stages 2 + 3: fetch, transform, filter ----------------------
+        # the effective active mask (real & ~quarantined) gates the live
+        # verdict, exactly the mask the fused kernel sees
+        new_vals, ts_out, live, keep, counts, badf = process_work_items(
+            cfg, tables._replace(active=tables.active & ~state.quarantined),
+            t, t, wi_src, wi_vals, wi_ts, wi_valid,
+            state.values, state.timestamps)
+        for k, v in counts.items():
+            _inc(stats, k, v)
+        # ---- stage 4: store, trigger actions and emit ---------------------
+        state, stats, sink = store_and_emit(cfg, tables, state, stats,
+                                            t, t, wi_src, new_vals, ts_out,
+                                            keep, N, wi_its=wi_its)
+        # ---- fault plane: breaker window + device auto-quarantine --------
+        state = finish(tables, state, stats, badf, wi_valid, t, wi_t,
+                       e_valid, e_row)
+        return state, sink
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# host engine
+# --------------------------------------------------------------------------
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA
+    raises — the engine never carries on on the CPU by itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the engine's plain torch path on the CPU")
+    return dev
+
+
+class StreamEngine:
+    """The single-device engine: owns the tables, the state and the round
+    closures of both paths.  Runs on ``device`` (CUDA by default): the
+    kernels launch for CUDA tensors, their plain versions run on the CPU.
+    Single device only: ``cfg.n_shards > 1`` raises."""
+
+    def __init__(self, registry: Registry, *, device="cuda",
+                 priority: Optional[np.ndarray] = None):
+        if registry.cfg.n_shards > 1:
+            raise NotImplementedError(
+                "cfg.n_shards > 1: the sharded engine is not ported yet "
+                "(ROADMAP.md, queue 1, item 9)")
+        self.device = resolve_device(device)
+        self.cfg = registry.cfg
+        self.registry = registry
+        self.tables = DeviceTables.from_host(registry.build_tables(priority),
+                                             self.device)
+        self.state = init_state(self.cfg, self.device)
+        self._steps: Dict[str, Callable] = {}
+        self._pending: List[Tuple] = []   # (sid, vals, ts, its)
+        self.admission_rejected = 0
+        self._rounds_done = 0
+        self._steps_done = 0
+        self._refresh_fusable()
+
+    # -------------------------------------------------------------- ingest
+    def post(self, stream, values: Sequence[float], ts: int,
+             its: Optional[int] = None) -> None:
+        """API ingress: a Web Object posts a Sensor Update (paper §III).
+        ``its`` defaults to the engine's round counter (the latency
+        plane's ingest stamp)."""
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        v = np.zeros((self.cfg.channels,), np.float32)
+        v[: len(values)] = values
+        if its is None:
+            its = self._rounds_done
+        self._pending.append((sid, v, int(ts), int(its)))
+
+    @staticmethod
+    def _select_wave(pending: List, B: int) -> Tuple[List, List]:
+        """One round's ingest selection: at most one pending SU per
+        stream (preserving order), at most B total."""
+        take, rest, seen = [], [], set()
+        for item in pending:
+            if len(take) < B and item[0] not in seen:
+                take.append(item)
+                seen.add(item[0])
+            else:
+                rest.append(item)
+        return take, rest
+
+    def _take_ingest(self) -> IngestBatch:
+        """This round's ingest batch on the engine's device."""
+        B, C = self.cfg.batch, self.cfg.channels
+        sid = np.zeros((B,), np.int32)
+        vals = np.zeros((B, C), np.float32)
+        ts = np.zeros((B,), np.int32)
+        valid = np.zeros((B,), bool)
+        its = np.zeros((B,), np.int32)
+        take, self._pending = self._select_wave(self._pending, B)
+        for i, (s, v, t, stamp) in enumerate(take):
+            sid[i], vals[i], ts[i], valid[i], its[i] = s, v, t, True, stamp
+        return IngestBatch(*(_tensor(a, self.device)
+                             for a in (sid, vals, ts, valid, its)))
+
+    # --------------------------------------------------------------- rounds
+    def round(self) -> SinkBatch:
+        """Run one four-stage engine round on the pending ingest batch and
+        return the round's external sink."""
+        self.state, sink = self._step(self.tables, self.state,
+                                      self._take_ingest())
+        self._rounds_done += 1
+        self._steps_done += 1
+        return sink
+
+    def drain(self, max_rounds: int = 256) -> List[SinkBatch]:
+        """Run rounds until the queue and the host backlog are empty."""
+        if self.cfg.superstep > 1:
+            raise NotImplementedError(
+                "superstep > 1: the superstep plane is not ported yet "
+                "(ROADMAP.md, queue 1, item 5)")
+        sinks = []
+        for _ in range(max_rounds):
+            busy_host = bool(self._pending)
+            sinks.append(self.round())
+            if not busy_host and not bool(self.state.q_valid.any()):
+                break
+        return sinks
+
+    # ---------------------------------------------------------- round paths
+    def _round_path(self) -> str:
+        """"fused" while the config asks for fusion and every admitted
+        program is fusable (no transcendental opcodes), else "staged"."""
+        return "fused" if (self.cfg.fused_round
+                           and self.cfg.scheduler == "packed"
+                           and bool(self._fusable_rows.all())) else "staged"
+
+    def _select_path(self) -> None:
+        """(Re)install the round closure of the current path."""
+        self._path = path = self._round_path()
+        step = self._steps.get(path)
+        if step is None:
+            step = self._steps[path] = make_step(self.cfg,
+                                                 fused=path == "fused")
+        self._step = step
+
+    def _refresh_fusable(self) -> None:
+        """Recompute the per-row fusability bitmap from the program table
+        and re-select the round path."""
+        self._fusable_rows = rf_ref.fusable_rows(
+            self.tables.progs.cpu().numpy())
+        self._select_path()
+
+    def _note_program(self, row: int, prog: Optional[np.ndarray]) -> None:
+        """Single-row fusability update after a program edit
+        (``prog=None``: the row is the all-NOP program)."""
+        self._fusable_rows[row] = rf_ref.fusable_program(prog)
+        self._select_path()
+
+    # ----------------------------------------------------- tenant QoS plane
+    @staticmethod
+    def _tid(tenant) -> int:
+        return int(tenant.tid if hasattr(tenant, "tid") else tenant)
+
+    def set_weight(self, tenant, weight: int) -> None:
+        """Set a tenant's fair-share weight live (in place), clipped to
+        ``[0, FAIR_SCALE]``; 0 exempts the tenant from shaping."""
+        self.tables.weight[self._tid(tenant)] = \
+            int(np.clip(weight, 0, FAIR_SCALE))
+
+    def set_quota(self, tenant, quota: int,
+                  burst: Optional[int] = None) -> None:
+        """Set a tenant's ingest quota live (in place): a token bucket
+        refilled by ``quota`` per round up to ``burst`` (default
+        ``quota``), both clipped to ``[0, QUOTA_MAX]``; the current bucket
+        is clamped to the new burst.  ``quota=0`` removes the cap."""
+        tid = self._tid(tenant)
+        b = quota if burst is None else burst
+        self.tables.quota[tid] = int(np.clip(quota, 0, QUOTA_MAX))
+        self.tables.burst[tid] = int(np.clip(b, 0, QUOTA_MAX))
+        torch.minimum(self.state.tokens, self.tables.burst,
+                      out=self.state.tokens)
+
+    def set_breaker(self, window: Optional[int] = None,
+                    threshold: Optional[int] = None,
+                    amp_ceiling: Optional[int] = None) -> None:
+        """Tune the circuit breaker live (in place): ``threshold`` faults
+        within a ``window``-round span quarantine a stream; 0 disarms
+        tripping (faults still count), ``amp_ceiling=0`` disarms the
+        amplification class.  Omitted knobs keep their values."""
+        cur = self.tables.breaker.cpu().numpy()
+        w = int(cur[0]) if window is None else int(window)
+        f = int(cur[1]) if threshold is None else int(threshold)
+        c = int(cur[2]) if amp_ceiling is None else int(amp_ceiling)
+        assert w >= 1 and f >= 0 and c >= 0
+        self.tables.breaker.copy_(torch.tensor([w, f, c], dtype=I32))
+
+    # ------------------------------------------------------------- readback
+    def value_of(self, stream) -> np.ndarray:
+        """Last stored value of ``stream`` (host ``(channels,)`` f32)."""
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        return self.state.values[sid].cpu().numpy()
+
+    def ts_of(self, stream) -> int:
+        """Last emission timestamp of ``stream`` (``INT_MIN`` = never)."""
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        return int(self.state.timestamps[sid])
+
+    def counters(self) -> Dict[str, int]:
+        """The scalar stat counters as a host dict (keys: STAT_KEYS)."""
+        return {k: int(v) for k, v in self.state.stats.items()}
+
+    def tenant_counters(self) -> Dict[str, np.ndarray]:
+        """Per-tenant counters as host arrays: ``emitted``, ``queued``,
+        ``dropped_quota`` and ``dropped_overflow``."""
+        return {key: getattr(self.state, field).cpu().numpy()
+                for key, field in (("emitted", "tenant_emitted"),
+                                   ("queued", "tenant_queued"),
+                                   ("dropped_quota", "tenant_dropped_quota"),
+                                   ("dropped_overflow",
+                                    "tenant_dropped_overflow"))}
+
+    def tenant_backlog(self, tenant=None):
+        """Per-tenant queue occupancy after the last round: the int for
+        one ``tenant``, or the ``(n_tenants,)`` array."""
+        occ = self.state.tenant_queued.cpu().numpy()
+        return occ if tenant is None else int(occ[self._tid(tenant)])
+
+    def fault_counters(self) -> Dict[str, np.ndarray]:
+        """Per-stream fault counters as by-sid host arrays:
+        ``quarantined``, ``fault_count`` and ``fault_total``."""
+        return {f: getattr(self.state, f).cpu().numpy()
+                for f in ("quarantined", "fault_count", "fault_total")}
+
+    def dead_letters(self, clear: bool = True) -> List[DeadLetter]:
+        """Drain the dead-letter spool: every SU dropped into a
+        ``dropped_*`` counter since the last drain, in drop order;
+        ``clear`` resets the spool cursor."""
+        st = self.state
+        if st.dlq_sid.shape[0] == 0:
+            return []
+        sid, vals, ts, its, reason, tenant = (
+            getattr(st, f).cpu().numpy() for f in (
+                "dlq_sid", "dlq_vals", "dlq_ts", "dlq_its", "dlq_reason",
+                "dlq_tenant"))
+        letters = [DeadLetter(int(sid[i]), np.array(vals[i]), int(ts[i]),
+                              DLQ_REASONS[int(reason[i])], int(tenant[i]),
+                              int(its[i]))
+                   for i in range(int(st.dlq_fill))]
+        if clear and letters:
+            self.state = st._replace(dlq_fill=torch.zeros_like(st.dlq_fill))
+        return letters
+
+    # ------------------------------------------------------------ snapshots
+    def snapshot(self) -> Tuple[Dict[str, np.ndarray], dict]:
+        """The full engine as ``(arrays, meta)`` — the keys and layout of
+        the JAX package's ``StreamEngine.snapshot()``: device tables,
+        engine state (stats included), the pending backlog, and a JSON-able
+        ``meta`` with the registry mirror and host counters."""
+        arrays: Dict[str, np.ndarray] = {}
+        for f in DeviceTables._fields:
+            arrays[f"tables/{f}"] = getattr(self.tables, f).cpu().numpy()
+        for f in EngineState._fields:
+            if f != "stats":
+                arrays[f"state/{f}"] = getattr(self.state, f).cpu().numpy()
+        for k in STAT_KEYS:
+            arrays[f"state/stats/{k}"] = self.state.stats[k].cpu().numpy()
+        C = self.cfg.channels
+        p = self._pending
+        arrays["pending/sid"] = np.array([e[0] for e in p], np.int32)
+        arrays["pending/vals"] = (np.stack([e[1] for e in p]).astype(np.float32)
+                                  if p else np.zeros((0, C), np.float32))
+        arrays["pending/ts"] = np.array([e[2] for e in p], np.int32)
+        arrays["pending/its"] = np.array([e[3] for e in p], np.int32)
+        meta = {"format": 1, "kind": "single",
+                "registry": self.registry.to_snapshot(),
+                "admission_rejected": self.admission_rejected,
+                "steps_done": self._steps_done,
+                "rounds_done": self._rounds_done}
+        return arrays, meta
+
+    def _install_snapshot(self, arrays: Dict[str, np.ndarray],
+                          meta: dict) -> None:
+        """Overwrite this engine's tables, state and backlog with a
+        snapshot's."""
+        dev = self.device
+        self.tables = DeviceTables(**{
+            f: _tensor(arrays[f"tables/{f}"], dev)
+            for f in DeviceTables._fields})
+        st = {f: _tensor(arrays[f"state/{f}"], dev)
+              for f in EngineState._fields if f != "stats"}
+        st["stats"] = {k: _tensor(arrays[f"state/stats/{k}"], dev)
+                       for k in STAT_KEYS}
+        self.state = EngineState(**st)
+        p_sid, p_vals, p_ts, p_its = (arrays[f"pending/{k}"]
+                                      for k in ("sid", "vals", "ts", "its"))
+        self._pending = [(int(p_sid[i]), np.array(p_vals[i], np.float32),
+                          int(p_ts[i]), int(p_its[i]))
+                         for i in range(p_sid.shape[0])]
+        self.admission_rejected = int(meta.get("admission_rejected", 0))
+        self._steps_done = int(meta.get("steps_done", 0))
+        self._rounds_done = int(meta.get("rounds_done", 0))
+        self._refresh_fusable()
+
+
+def create_engine(registry: Registry, *, device="cuda", **kw) -> StreamEngine:
+    """Build the engine for ``registry.cfg`` on ``device`` (CUDA by
+    default).  Single device only: ``cfg.n_shards > 1`` raises."""
+    return StreamEngine(registry, device=device, **kw)
+
+
+def engine_from_snapshot(arrays: Dict[str, np.ndarray], meta: dict, *,
+                         device="cuda", **kw) -> StreamEngine:
+    """Build an engine from a single-device ``(arrays, meta)`` snapshot —
+    this package's or the JAX package's ``StreamEngine.snapshot()`` (flat
+    numpy plus JSON meta carrying the registry mirror): tables, state,
+    stats and pending backlog are installed verbatim, so the continuation
+    is bit-identical."""
+    if meta.get("kind", "single") != "single":
+        raise NotImplementedError("only single-device snapshots are ported")
+    eng = create_engine(Registry.from_snapshot(meta["registry"]),
+                        device=device, **kw)
+    eng._install_snapshot(arrays, meta)
+    return eng

@@ -1,0 +1,52 @@
+"""The port stands alone: importing ``repro_torch`` and every module
+under it loads neither ``jax`` nor anything of the JAX package ``repro``,
+and no source file of the port imports them."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = list(_modules())
+    assert "repro_torch.core.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m in ('jax', 'jaxlib') or m.startswith(('jax.', 'jaxlib.'))\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|from\s+repro\.|"
+    r"import\s+repro\s*$|from\s+repro\s+import)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    SRC.parent / "chip_smoke.py"], ids=lambda p: p.name)
+def test_no_source_imports_jax_or_repro(path):
+    assert not FORBIDDEN.search(path.read_text()), path
