@@ -11,22 +11,40 @@ Phases, each printed on its own line:
    ``build/repro_torch_kernels/`` (all sources at once) and print the
    build time, ptxas' register/shared-memory report and the card.
 2. Hold each kernel bit for bit against its plain torch version on the
-   card: ``sched_pop`` at Q=2048, B=64, C=4 and ``fused_round`` at the
-   default engine widths, on adversarial inputs.
+   card: ``sched_pop`` at Q=2048, B=64, C=4, ``fused_round`` at the
+   default engine widths, and ``window_agg`` at W in {1, 8, 33, 256,
+   1024} and C in {1, 4} with N a multiple of no CTA's stream count, on
+   adversarial inputs (NaN, -0.0, subnormals, empty and full windows).
 3. Drive the fused main path (``StreamEngine.round``) at the default
    ``EngineConfig`` widths with 4,096 streams for 64 rounds, once through
    the kernels and once through their plain versions; every state leaf,
    stat and sink must agree bitwise, and ``fused_round`` must have
    launched once per round.
-4. The same registry plus one ``tanh`` composite flips the engine to the
-   staged path; same comparison, and ``sched_pop`` must have launched
-   once per round.
-5. Time each kernel at the phase-3 shapes (CUDA events around many
+4. The same registry through eight supersteps of K = 8
+   (``StreamEngine.superstep``), each K rounds run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
+   between the staging copy and the spool readback), against 64 eager
+   rounds on a second engine: every state leaf, stat and per-round sink
+   bitwise; ms per superstep beside K x ms per eager round.
+5. The same registry plus one ``tanh`` composite flips the engine to the
+   staged path; phase 3's comparison over 24 rounds, and ``sched_pop``
+   must have launched once per round.
+6. Phase 4 on the staged path: three supersteps of K = 8 against 24
+   eager rounds.
+7. The IoT suite at full width (1,024 tenants of ETL and STATS flows,
+   3,586 streams, a 256-entry window store of 14.7 MB) replayed by
+   ``repro_torch.workloads.drive`` through supersteps of K = 8, once
+   through the kernels and once through their plain versions: engine
+   state, every latency record, the SLO histograms and report, the window
+   store and the five aggregates bitwise; wall time, supersteps/s and
+   records/s of the kernel run.
+8. Time each kernel at the main path's shapes (CUDA events around many
    back-to-back launches with the host preparation done beforehand, and
    ``torch.profiler``'s device time per CUDA kernel) beside its plain
    version, and work out its bound from the bytes this run's data needs
-   and from the dependent chain of its selection steps (the card's cycles
-   per dependent instruction measured here by a one-thread probe).
+   and from its operations (for the two pops, the dependent chain of
+   their selection steps, the card's cycles per dependent instruction
+   measured here by a one-thread probe).
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -327,6 +345,35 @@ def phase_kernels(torch, dev, cfg_defaults):
     errs["fused_round"] = err
     print(f"[kernels] fused_round Q={Q} N={N} B={B} F={F} M={M} L={L} "
           f"R={R}: bitwise equal to the plain version (2 cases)", flush=True)
+
+    # -- window_agg: N = 4099 is a multiple of no CTA's stream count (128
+    # streams at C = 1, 32 at C = 4); windows with NaN, -0.0, subnormals,
+    # and empty and full windows among the counts
+    from repro_torch.kernels.window_agg.kernel import window_agg_call
+    from repro_torch.kernels.window_agg.ops import window_agg
+    err, shapes = 0.0, []
+    for W in (1, 8, 33, 256, 1024):
+        for C in (1, 4):
+            N = 4099
+            v = (rng.standard_normal((N, W, C)) * 10).astype(np.float32)
+            flat = v.reshape(-1)
+            for x in (np.nan, -0.0, 1e-40, -3e-39):
+                flat[rng.integers(0, v.size, 64)] = x
+            count = rng.integers(0, W + 1, N).astype(np.int32)
+            count[:3] = (0, W, W)
+            count[rng.integers(0, N, 64)] = W
+            values = torch.from_numpy(v).to(dev)
+            cnt = torch.from_numpy(count).to(dev)
+            got = window_agg_call(values, cnt)
+            want = window_agg(values, cnt, use_kernel=False)
+            torch.cuda.synchronize()
+            for k in want:
+                err = max(err, compare(f"window_agg W={W} C={C} {k}",
+                                       got[k], want[k]))
+            shapes.append(f"({N}, {W}, {C})")
+    errs["window_agg"] = err
+    print(f"[kernels] window_agg at {', '.join(shapes)}: all five outputs "
+          f"bitwise equal to the plain version", flush=True)
     return errs
 
 
@@ -401,15 +448,10 @@ def drive(torch, eng, sources, rounds, seed, per_round, warmup=0):
 
 
 def plain_engine(reg, dev):
-    """An engine on the card whose round closures run the kernels' plain
-    torch versions: the history the kernels are held against."""
+    """An engine on the card whose rounds run the kernels' plain torch
+    versions: the history the kernels are held against."""
     from repro_torch.core import create_engine
-    from repro_torch.core.engine import make_step
-    eng = create_engine(reg, device=dev)
-    eng._steps = {p: make_step(reg.cfg, fused=p == "fused", use_kernel=False)
-                  for p in ("fused", "staged")}
-    eng._select_path()
-    return eng
+    return create_engine(reg, device=dev, use_kernel=False)
 
 
 def compare_engines(tag, e_kernel, s_kernel, e_plain, s_plain):
@@ -464,7 +506,188 @@ def phase_path(torch, dev, reg, sources, path, rounds, warmup, counter,
 
 
 # --------------------------------------------------------------------------
-# phase 5: timings at the phase-3 shapes
+# phases 4 and 6: supersteps against eager rounds
+# --------------------------------------------------------------------------
+
+def guard_rounds(torch, eng) -> None:
+    """Run every superstep's K rounds of ``eng`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation
+    between the staging copy and the spool readback raises there."""
+    run = eng._run_superstep
+
+    def guarded(K):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(K)
+        except RuntimeError as e:
+            fail(f"host synchronisation inside a superstep's rounds: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng._run_superstep = guarded
+
+
+def host_sink(sink):
+    """A per-round sink of host arrays as tensors (for ``compare``)."""
+    import torch
+    return tuple(torch.from_numpy(x) for x in sink)
+
+
+def phase_superstep(torch, dev, reg, sources, path, K, n_steps, counter,
+                    counters):
+    """``n_steps`` supersteps of K rounds on one engine against
+    ``n_steps * K`` eager rounds on another, both through the kernels,
+    with the same posts before each group of K rounds (K * batch SUs to
+    random sources, repeats included, so bursts carry over).  Every
+    per-round sink and, at the end, every state leaf and stat must agree
+    bitwise.  Returns (ms per superstep, ms per eager round), over the
+    steps after the first."""
+    import numpy as np
+    from repro_torch.core import create_engine
+    e_step = create_engine(reg, device=dev)
+    e_round = create_engine(reg, device=dev)
+    for e in (e_step, e_round):
+        if e._path != path:
+            fail(f"expected the {path} path, engine took {e._path}")
+    guard_rounds(torch, e_step)
+    rng = np.random.default_rng(SEED + 7)
+    B = reg.cfg.batch
+    t_step = t_round = 0.0
+    for c in counters:
+        c.launches = 0
+    for s in range(n_steps):
+        picks = rng.integers(0, len(sources), K * B)
+        vals = rng.standard_normal((K * B, 4)).astype(np.float32)
+        ts = s * 100 + rng.integers(0, 90, K * B)
+        for e in (e_step, e_round):
+            for j, v, t in zip(picks, vals, ts):
+                e.post(sources[j], v.tolist(), int(t))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sinks = e_step.spool_sinks(e_step.superstep(K))
+        t1 = time.perf_counter()
+        rounds = [e_round.round() for _ in range(K)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if s > 0:
+            t_step += t1 - t0
+            t_round += t2 - t1
+        for k, (a, b) in enumerate(zip(sinks, rounds)):
+            compare(f"{path} superstep {s} round {k}", host_sink(a),
+                    tuple(b))
+    if counter.launches != 2 * n_steps * K:
+        fail(f"{path} supersteps: {counter.__name__} launched "
+             f"{counter.launches} times in 2 x {n_steps * K} rounds")
+    compare_engines(f"{path} superstep", e_step, [], e_round, [])
+    c = e_step.counters()
+    if c["emitted"] == 0 or c != e_round.counters():
+        fail(f"{path} supersteps: counters {c} vs {e_round.counters()}")
+    timed = n_steps - 1
+    ms_step, ms_round = t_step / timed * 1e3, t_round / (timed * K) * 1e3
+    print(f"[{path} superstep] {n_steps} supersteps of K={K} bitwise equal "
+          f"to {n_steps * K} eager rounds (every sink, state leaf and stat); "
+          f"no host synchronisation inside the K rounds; "
+          f"{counter.__name__} launches {counter.launches}; steps 2-"
+          f"{n_steps}: {ms_step} ms per superstep (staging and spool "
+          f"readback included) vs K x {ms_round} = {K * ms_round} ms of "
+          f"eager rounds; emitted={c['emitted']} pending "
+          f"{len(e_step._pending)}", flush=True)
+    return ms_step, ms_round
+
+
+# --------------------------------------------------------------------------
+# phase 7: the IoT suite at full width
+# --------------------------------------------------------------------------
+
+SUITE = dict(n_tenants=1024, batch=64, queue=2048, window=256, rounds=32,
+             K=8)
+
+
+def run_suite(torch, dev, use_kernel, counters):
+    """Build the full-width suite and replay its trace once; every launch
+    counter is 0 just before ``drive``.  Returns (suite, drive's result,
+    the latency records of every superstep, wall seconds of ``drive``)."""
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    suite = build_suite(
+        SUITE["n_tenants"], kinds=("etl", "stats"), batch=SUITE["batch"],
+        queue=SUITE["queue"], window=SUITE["window"],
+        trace=TraceConfig(n_devices=SUITE["n_tenants"],
+                          rounds=SUITE["rounds"], seed=0),
+        cfg_overrides={"superstep": SUITE["K"]}, device=dev,
+        use_kernel=use_kernel)
+    if suite.engine._path != "fused":
+        fail(f"the IoT suite took the {suite.engine._path} path")
+    log = []
+    records = suite.engine.latency_records
+
+    def logged(source, base=None):
+        out = records(source, base)
+        log.append(out)
+        return out
+
+    suite.engine.latency_records = logged
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = drive(suite, SUITE["K"])
+    torch.cuda.synchronize()
+    return suite, out, log, time.perf_counter() - t0
+
+
+def phase_suite(torch, dev, counters):
+    """The suite through the kernels and through their plain versions,
+    compared bitwise; returns (kernel suite, launches per kernel)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    sp, outp, logp, _ = run_suite(torch, dev, False, counters)
+    build_and_plain = time.perf_counter() - t0
+    sk, outk, logk, wall = run_suite(torch, dev, None, counters)
+    launches = {c.__name__: c.launches for c in counters}
+    n_steps = SUITE["rounds"] + 4
+    if launches["fused_round_call"] != n_steps * SUITE["K"] \
+            or launches["window_agg_call"] < 1:
+        fail(f"IoT suite: launches {launches} in {n_steps} supersteps")
+    compare_engines("suite", sk.engine, [], sp.engine, [])
+    if len(logk) != len(logp):
+        fail("IoT suite: a different number of latency readbacks")
+    for i, (a, b) in enumerate(zip(logk, logp)):
+        for key in a:
+            compare(f"suite records {i} {key}", torch.from_numpy(a[key]),
+                    torch.from_numpy(b[key]))
+    if not (np.array_equal(sk.slo.hist, sp.slo.hist)
+            and np.array_equal(sk.slo.violations, sp.slo.violations)
+            and outk["slo_report"] == outp["slo_report"]
+            and outk["records"] == outp["records"] > 0):
+        fail("IoT suite: SLO histograms or report differ")
+    for f in sk.stats.store._fields:
+        compare(f"suite window store {f}", getattr(sk.stats.store, f),
+                getattr(sp.stats.store, f))
+    for k in outk["aggregates"]:
+        compare(f"suite aggregate {k}", torch.from_numpy(outk["aggregates"][k]),
+                torch.from_numpy(outp["aggregates"][k]))
+    c = sk.engine.counters()
+    spooled = sum(int(r["sid"].size) for r in logk)
+    rep = outk["slo_report"]["total"]
+    print(f"[suite] {SUITE['n_tenants']} tenants (ETL + STATS), "
+          f"{sk.registry.n_active} streams, window store "
+          f"{tuple(sk.stats.store.values.shape)} = "
+          f"{sk.stats.store.values.numel() * 4 / 1e6} MB: kernels bitwise "
+          f"equal to the plain versions (state, {len(logk)} latency "
+          f"readbacks, SLO histograms and report, window store, five "
+          f"aggregates); launches {launches}; drive() wall {wall} s for "
+          f"{n_steps} supersteps of K={SUITE['K']}: {n_steps / wall} "
+          f"supersteps/s, {outk['records']} terminal-sink records = "
+          f"{outk['records'] / wall} records/s ({spooled} spooled "
+          f"emissions); latency p50/p95/p99 {rep['p50']}/{rep['p95']}/"
+          f"{rep['p99']} rounds; processed={c['processed']} "
+          f"emitted={c['emitted']} dropped_overflow={c['dropped_overflow']}; "
+          f"plain run incl. build {build_and_plain} s", flush=True)
+    return sk, launches
+
+
+# --------------------------------------------------------------------------
+# phase 8: timings at the main path's shapes
 # --------------------------------------------------------------------------
 
 def pop_bytes(Q: int, B: int, C: int) -> int:
@@ -599,6 +822,63 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
     return rows_out
 
 
+def window_agg_cost(count, N: int, C: int):
+    """Bytes and operations the window aggregates need: each valid entry
+    read once (the kernel loads no entry past a stream's count), the
+    counts, and five (N, C) outputs written; three float operations per
+    valid value (add, max, min) and one division per output mean."""
+    valid = int(count.clamp(min=0).sum())
+    return valid * C * 4 + N * 4 + 5 * N * C * 4, 3 * valid * C + N * C
+
+
+def time_window_agg(torch, suite, errs, launches):
+    """``window_agg`` at the suite's store (the main path's shape and
+    counts) and at (4096, 1024, 4) with every window full (64 MB, more
+    than the 50 MB L2, so the kernel reads HBM)."""
+    from repro_torch.kernels.window_agg.kernel import plan_window_agg
+    from repro_torch.kernels.window_agg.ops import window_agg
+    store = suite.stats.store
+    N, W, C = store.values.shape
+    count = torch.clamp(store.total, max=W)
+    n_bytes, n_ops = window_agg_cost(count, N, C)
+    full_bytes = N * W * C * 4 + N * 4 + 5 * N * C * 4
+    bound, by = bound_ms(n_bytes, n_ops, 0.0)
+    launch, _ = plan_window_agg(store.values, count)
+    ms, host = time_launches([launch], 200)
+    prof = profile_kernels([launch], ["window_agg_kernel"])
+    plain = time_ms(lambda: window_agg(store.values, count,
+                                       use_kernel=False), reps=5)
+    print(f"[timing] window_agg at the suite's ({N}, {W}, {C}), "
+          f"{int(count.sum())} valid entries: kernel {ms} ms (CUDA events "
+          f"over 200 back-to-back launches; host enqueue {host} ms per "
+          f"launch), profiler {prof['window_agg_kernel']} ms; plain {plain} "
+          f"ms; bound {bound} ms ({by}; {n_bytes} bytes this data needs, "
+          f"{full_bytes} with every window full; {n_ops} operations); no "
+          f"single PyTorch call computes the five aggregates, so no "
+          f"library time", flush=True)
+    gen = torch.Generator(device=store.values.device).manual_seed(SEED)
+    big = torch.randn((4096, 1024, 4), generator=gen,
+                      device=store.values.device)
+    full = torch.full((4096,), 1024, dtype=torch.int32, device=big.device)
+    b_bytes, b_ops = window_agg_cost(full, 4096, 4)
+    b_bound, b_by = bound_ms(b_bytes, b_ops, 0.0)
+    b_launch, _ = plan_window_agg(big, full)
+    b_ms, b_host = time_launches([b_launch], 50)
+    b_prof = profile_kernels([b_launch], ["window_agg_kernel"], n=20)
+    b_plain = time_ms(lambda: window_agg(big, full, use_kernel=False), reps=3)
+    print(f"[timing] window_agg at (4096, 1024, 4), every window full: "
+          f"kernel {b_ms} ms (50 launches; host {b_host} ms per launch), "
+          f"profiler {b_prof['window_agg_kernel']} ms; plain {b_plain} ms; "
+          f"bound {b_bound} ms ({b_by}; {b_bytes} bytes) = "
+          f"{b_bytes / (b_ms * 1e-3) / 1e12} TB/s achieved", flush=True)
+    return dict(
+        name="window_agg", route="cuda",
+        source="src/repro_torch/kernels/window_agg/csrc/window_agg.cu",
+        replaces="src/repro/kernels/window_agg/kernel.py:38",
+        launches=launches, max_abs_err=errs["window_agg"], ms=ms,
+        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+
+
 # --------------------------------------------------------------------------
 
 def nvidia_smi() -> str:
@@ -632,6 +912,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.round_fuse.kernel import fused_round_call
     from repro_torch.kernels.sched_pop.kernel import sched_pop_call
+    from repro_torch.kernels.window_agg.kernel import window_agg_call
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -665,20 +946,33 @@ def main() -> None:
     reg, sources = build_registry(cfg, rng)
     print(f"[registry] {reg.n_active} streams ({len(sources)} sources) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    counters = (fused_round_call, sched_pop_call)
+    counters = (fused_round_call, sched_pop_call, window_agg_call)
     eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 64,
                                      8, fused_round_call, counters)
 
-    # ---- 4. staged main path: one tanh composite flips it --------------
+    # ---- 4. fused supersteps against eager rounds ----------------------
+    phase_superstep(torch, dev, reg, sources, "fused", 8, 8,
+                    fused_round_call, counters)
+
+    # ---- 5. staged main path: one tanh composite flips it --------------
     reg.create_composite(reg.tenants[0], "hot", CHANNELS, sources[:2],
                          {ch: f"tanh(in0.{ch}) + in1.{ch}" for ch in CHANNELS})
     _, sp_launches, _ = phase_path(torch, dev, reg, sources, "staged", 24,
                                    4, sched_pop_call, counters)
 
-    # ---- 5. timings ------------------------------------------------------
+    # ---- 6. staged supersteps against eager rounds ---------------------
+    phase_superstep(torch, dev, reg, sources, "staged", 8, 3,
+                    sched_pop_call, counters)
+
+    # ---- 7. the IoT suite at full width, kernels against plain ---------
+    suite, suite_launches = phase_suite(torch, dev, counters)
+
+    # ---- 8. timings ------------------------------------------------------
     rows = phase_timings(torch, eng, errs, {"sched_pop": sp_launches,
                                             "fused_round": fr_launches},
                          dep_cycles, clock_hz)
+    rows.append(time_window_agg(torch, suite, errs,
+                                suite_launches["window_agg_call"]))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

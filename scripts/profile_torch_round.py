@@ -7,9 +7,12 @@ chosen path under ``torch.profiler`` and prints one JSON line: host wall
 ms per round, device busy ms per round (the sum of the CUDA kernels' and
 copies' own device time — one stream, so they do not overlap), the
 device's idle share, CUDA launches per round, and the kernels that take
-the most device time.  Needs one CUDA device; fails without one.
+the most device time.  ``--superstep K`` runs the same rounds as
+supersteps of K (posts at each boundary, one spool readback each).
+Needs one CUDA device; fails without one.
 
-    python3 scripts/profile_torch_round.py [--path fused|staged] [--rounds 16]
+    python3 scripts/profile_torch_round.py [--path fused|staged] \
+        [--rounds 16] [--superstep K]
 """
 from __future__ import annotations
 
@@ -27,16 +30,46 @@ def device_events(prof, torch):
     return [e for e in prof.events() if e.device_type == cuda]
 
 
-def profile_round(torch, cs, eng, sources, rounds: int, warmup: int):
+def drive_supersteps(torch, eng, sources, rounds, seed, per_round, K):
+    """``rounds // K`` supersteps of K rounds, each after posting what K
+    rounds of ``chip_smoke.drive`` would (``per_round`` SUs to distinct
+    sources per round), each read back once; returns (spools, wall
+    seconds)."""
+    import time
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for s in range(rounds // K):
+        for r in range(s * K, (s + 1) * K):
+            for j in rng.choice(len(sources), per_round, replace=False):
+                eng.post(sources[j], rng.standard_normal(4).tolist(),
+                         r * 10 + int(rng.integers(0, 9)))
+        out.append(eng.spool_sinks(eng.superstep(K)))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_round(torch, cs, eng, sources, rounds: int, warmup: int,
+                  superstep: int = 0):
     """Time ``rounds`` rounds of ``eng`` unprofiled, then the same count
-    under ``torch.profiler``; returns the summary dict."""
+    under ``torch.profiler``; returns the summary dict.  ``superstep=K``
+    runs the rounds as supersteps of K (``rounds`` a multiple of K)."""
     from torch.profiler import ProfilerActivity, profile
     B = eng.cfg.batch
-    cs.drive(torch, eng, sources, warmup, cs.SEED + 1, B)
-    _, wall = cs.drive(torch, eng, sources, rounds, cs.SEED + 2, B)
+
+    def run(n, seed):
+        if superstep:
+            return drive_supersteps(torch, eng, sources, n, seed, B,
+                                    superstep)
+        return cs.drive(torch, eng, sources, n, seed, B)
+
+    run(warmup, cs.SEED + 1)
+    _, wall = run(rounds, cs.SEED + 2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall_prof = cs.drive(torch, eng, sources, rounds, cs.SEED + 3, B)
+        _, wall_prof = run(rounds, cs.SEED + 3)
     events = device_events(prof, torch)
     per_name = {}
     for e in events:
@@ -46,11 +79,13 @@ def profile_round(torch, cs, eng, sources, rounds: int, warmup: int):
     busy_ms = sum(t for t, _ in per_name.values()) / rounds / 1e3
     prof_ms = wall_prof / rounds * 1e3
     return {
-        "path": eng._path, "rounds": rounds,
+        "path": eng._path, "rounds": rounds, "superstep": superstep or 1,
         "wall_ms_per_round": wall / rounds * 1e3,
         "profiled_wall_ms_per_round": prof_ms,
         "device_busy_ms_per_round": busy_ms if events else None,
         "device_idle_share": (1 - busy_ms / prof_ms) if events else None,
+        "unprofiled_idle_share": (1 - busy_ms / (wall / rounds * 1e3))
+        if events else None,
         "device_events_per_round": len(events) / rounds,
         "top_kernels": [{"name": k[:80], "ms_per_round": t / rounds / 1e3,
                          "calls_per_round": n / rounds}
@@ -63,7 +98,13 @@ def main() -> None:
     ap.add_argument("--path", choices=("fused", "staged"), default="fused")
     ap.add_argument("--rounds", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=8)
+    ap.add_argument("--superstep", type=int, default=0,
+                    help="run the rounds as supersteps of this K")
     args = ap.parse_args()
+    if args.superstep and (args.rounds % args.superstep
+                           or args.warmup % args.superstep):
+        sys.exit("profile_torch_round: --rounds and --warmup must be "
+                 "multiples of --superstep")
 
     import numpy as np
     import torch
@@ -82,7 +123,8 @@ def main() -> None:
     eng = create_engine(reg, device=torch.device("cuda", 0))
     if eng._path != args.path:
         sys.exit(f"profile_torch_round: engine took the {eng._path} path")
-    out = profile_round(torch, cs, eng, sources, args.rounds, args.warmup)
+    out = profile_round(torch, cs, eng, sources, args.rounds, args.warmup,
+                        args.superstep)
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

@@ -1,17 +1,17 @@
 """Core of the PyTorch port: the single-device multi-tenant pub/sub
-stream round (the names of the JAX package's ``repro.core`` that this
-package has ported)."""
+stream round and its superstep plane (the names of the JAX package's
+``repro.core`` that this package has ported)."""
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.engine import (DLQ_REASONS, DeadLetter, DeviceTables,
-                                     EngineState, IngestBatch, SinkBatch,
-                                     StreamEngine, create_engine,
-                                     engine_from_snapshot, init_state,
-                                     make_step)
+                                     EngineState, IngestBatch, IngestRing,
+                                     SinkBatch, SinkSpool, StreamEngine,
+                                     create_engine, engine_from_snapshot,
+                                     init_state, make_step, make_superstep)
 from repro_torch.core.registry import Registry, Stream, Tenant
 
 __all__ = [
     "EngineConfig", "Registry", "Stream", "Tenant", "StreamEngine",
-    "DeviceTables", "EngineState", "IngestBatch", "SinkBatch", "init_state",
-    "make_step", "create_engine", "engine_from_snapshot", "DeadLetter",
-    "DLQ_REASONS",
+    "DeviceTables", "EngineState", "IngestBatch", "SinkBatch",
+    "IngestRing", "SinkSpool", "init_state", "make_step", "make_superstep",
+    "create_engine", "engine_from_snapshot", "DeadLetter", "DLQ_REASONS",
 ]

@@ -197,13 +197,20 @@ def _padded(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
 
 
+def _src(t: torch.Tensor, src) -> torch.Tensor:
+    """A scalar ``src`` as a 0-dim tensor filled on ``t``'s device (never a
+    tensor made from host data, which is a synchronising copy on the
+    card)."""
+    return src if isinstance(src, torch.Tensor) else t.new_full((), src)
+
+
 def _set_drop(t: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
     """``t.at[idx].set(src, mode="drop")``: rows ``idx`` outside
     ``[0, len(t))`` are dropped (written to a pad row, then sliced off).
     In-range indices must be unique."""
     n = t.shape[0]
     pad = _padded(t)
-    pad[_drop_index(idx, n)] = src
+    pad[_drop_index(idx, n)] = _src(t, src)
     return pad[:n]
 
 
@@ -213,7 +220,7 @@ def _set_drop2(t: torch.Tensor, i: torch.Tensor, j: torch.Tensor, src
     out of range) and in-range columns ``j``."""
     n = t.shape[0]
     pad = _padded(t)
-    pad[_drop_index(i, n), j.long()] = src
+    pad[_drop_index(i, n), j.long()] = _src(t, src)
     return pad[:n]
 
 
@@ -222,8 +229,7 @@ def _add_drop(t: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     repeated indices accumulate."""
     n = t.shape[0]
     idx = _drop_index(idx, n)
-    src = torch.broadcast_to(torch.as_tensor(val, dtype=t.dtype,
-                                             device=t.device), idx.shape)
+    src = torch.broadcast_to(_src(t, val), idx.shape)
     return _padded(t).index_add_(0, idx, src)[:n]
 
 
@@ -391,8 +397,7 @@ def _pop(state: EngineState, priority_by_sid: torch.Tensor, batch: int,
                                  state.q_ts, batch, use_kernel=use_kernel)
         p_sid, p_vals, p_ts, p_valid = popped
         t = take.long()
-        q_valid = state.q_valid.clone()
-        q_valid[t] = False
+        q_valid = state.q_valid.index_fill(0, t, False)
         return state._replace(q_valid=q_valid), \
             (p_sid, p_vals, p_ts, state.q_its[t], p_valid)
     key = torch.where(state.q_valid, _take(priority_by_sid, state.q_sid),
@@ -413,11 +418,10 @@ def _pop(state: EngineState, priority_by_sid: torch.Tensor, batch: int,
         reorder = _lexsort(state.q_seq[order0], vtag, key[order0])
         order = order0[reorder]
     take = order[:batch]
-    q_valid = state.q_valid.clone()
     popped = (state.q_sid[take], state.q_vals[take], state.q_ts[take],
-              state.q_its[take], q_valid[take])
-    q_valid[take] = False
-    return state._replace(q_valid=q_valid), popped
+              state.q_its[take], state.q_valid[take])
+    return state._replace(q_valid=state.q_valid.index_fill(0, take, False)
+                          ), popped
 
 
 # --------------------------------------------------------------------------
@@ -739,9 +743,8 @@ def make_step(cfg: EngineConfig, fused: Optional[bool] = None,
                              use_kernel=use_kernel)
             tk = take.long()
             e_its = state.q_its[tk]
-            q_valid = state.q_valid.clone()
-            q_valid[tk] = False
-            state = state._replace(q_valid=q_valid)
+            state = state._replace(
+                q_valid=state.q_valid.index_fill(0, tk, False))
             _inc(stats, "popped", _count(e_pop))
             state, e_row, _ = drop_dead_events(tables, state, stats, e_sid,
                                                e_vals, e_ts, e_its, e_pop)
@@ -807,6 +810,176 @@ def make_step(cfg: EngineConfig, fused: Optional[bool] = None,
 
 
 # --------------------------------------------------------------------------
+# the superstep execution plane: K rounds per host dispatch
+# --------------------------------------------------------------------------
+
+class IngestRing(NamedTuple):
+    """Device-resident pool of pending SUs feeding a K-round superstep.
+
+    ``post()`` still appends host-side; at each superstep *boundary* the
+    host stages the ring with one edit (:func:`stage_ring`): new SU
+    payloads are scattered into free slots and every slot's routing tag is
+    rewritten.  Slots tagged ``rnd < K`` form the superstep's ``(K, B)``
+    pre-staged ingest grid — round ``rnd`` consumes them at grid column
+    ``pos``; slots tagged ``rnd >= K`` are the persistent overflow queue:
+    SUs (same-stream bursts longer than K rounds) whose payloads stay
+    resident on the device and are merely re-tagged at the next
+    boundary."""
+    sid: torch.Tensor      # (R,)
+    vals: torch.Tensor     # (R, C)
+    ts: torch.Tensor       # (R,)
+    its: torch.Tensor      # (R,) ingest stamps (latency plane)
+    rnd: torch.Tensor      # (R,) target round this superstep; >= K = carried
+    pos: torch.Tensor      # (R,) column within the (K, B) grid row
+    valid: torch.Tensor    # (R,) bool — slot holds a pending SU
+
+
+class SinkSpool(NamedTuple):
+    """On-device emission spool of one superstep: every round's external
+    sink entries appended compactly behind a fill cursor, read back once
+    per superstep instead of once per round.  ``rnd`` records the round
+    that produced each entry, so per-round :class:`SinkBatch` views can be
+    reconstructed bit-identically (``StreamEngine.spool_sinks``).
+    Emissions beyond capacity are counted in ``stats["dropped_spool"]`` —
+    never silently truncated."""
+    sid: torch.Tensor      # (P,)
+    vals: torch.Tensor     # (P, C)
+    ts: torch.Tensor       # (P,)
+    its: torch.Tensor      # (P,) ingest stamps (latency plane)
+    rnd: torch.Tensor      # (P,) round within the superstep; the global
+    #                        round is engine._last_base + rnd
+    fill: torch.Tensor     # scalar int32 cursor
+
+
+def init_ring(cfg: EngineConfig, K: int, device) -> IngestRing:
+    """Empty K-round ingest ring on ``device``: ``cfg.ring_slots(K)`` free
+    slots, every tag at ``rnd == K`` (carried / unused)."""
+    R, C = cfg.ring_slots(K), cfg.channels
+
+    def z(shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return IngestRing(sid=z((R,)), vals=z((R, C), F32), ts=z((R,)),
+                      its=z((R,)),
+                      rnd=torch.full((R,), K, dtype=I32, device=device),
+                      pos=z((R,)), valid=z((R,), BOOL))
+
+
+def _init_spool(P: int, C: int, device) -> SinkSpool:
+    def z(shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return SinkSpool(sid=z((P,)), vals=z((P, C), F32), ts=z((P,)),
+                     its=z((P,)), rnd=z((P,)), fill=z(()))
+
+
+def stage_ring(ring: IngestRing, w_slot, w_sid, w_vals, w_ts, w_its,
+               rnd, pos, valid) -> IngestRing:
+    """The one host->device edit per superstep boundary: scatter newly
+    posted SU payloads into free ring slots (``w_*`` are (R,)-padded;
+    ``w_slot == R`` entries drop) and rewrite every slot's routing tag.
+    Carried-over slots keep their payloads — only tags travel again.  The
+    arguments are device tensors (the host ships them in two copies)."""
+    return IngestRing(
+        sid=_set_drop(ring.sid, w_slot, w_sid),
+        vals=_set_drop(ring.vals, w_slot, w_vals),
+        ts=_set_drop(ring.ts, w_slot, w_ts),
+        its=_set_drop(ring.its, w_slot, w_its),
+        rnd=rnd, pos=pos, valid=valid)
+
+
+def ring_grid(ring: IngestRing, K: int, B: int, C: int) -> IngestBatch:
+    """Materialise the (K, B) pre-staged ingest grid from the ring — each
+    staged SU lands at (rnd, pos), exactly where K sequential
+    ``_take_ingest`` batches would have put it."""
+    use = ring.valid & (ring.rnd < K)
+    cell = torch.where(use, ring.rnd * B + ring.pos, K * B)
+    dev = ring.sid.device
+
+    def grid(src, shape, dtype):
+        return _set_drop(torch.zeros(shape, dtype=dtype, device=dev), cell,
+                         src)
+
+    return IngestBatch(
+        sid=grid(ring.sid, (K * B,), I32).reshape(K, B),
+        vals=grid(ring.vals, (K * B, C), F32).reshape(K, B, C),
+        ts=grid(ring.ts, (K * B,), I32).reshape(K, B),
+        valid=grid(use, (K * B,), BOOL).reshape(K, B),
+        its=grid(ring.its, (K * B,), I32).reshape(K, B))
+
+
+def spool_append(spool: SinkSpool, sink: SinkBatch, k: int
+                 ) -> Tuple[SinkSpool, torch.Tensor]:
+    """Append one round's valid sink entries behind the fill cursor;
+    returns the spool and the per-entry overflow mask (its sum feeds
+    ``dropped_spool``; the mask itself feeds the dead-letter spool)."""
+    P = spool.sid.shape[0]
+    add = sink.valid
+    rank = spool.fill + _cumsum(add) - 1
+    dest = torch.where(add & (rank < P), rank, P)
+    over = add & (rank >= P)
+    return SinkSpool(
+        sid=_set_drop(spool.sid, dest, sink.sid),
+        vals=_set_drop(spool.vals, dest, sink.vals),
+        ts=_set_drop(spool.ts, dest, sink.ts),
+        its=_set_drop(spool.its, dest, sink.its),
+        rnd=_set_drop(spool.rnd, dest, k),
+        fill=torch.clamp(spool.fill + _count(add), max=P),
+    ), over
+
+
+def scan_rounds(round_fn: Callable, state: EngineState, ring: IngestRing,
+                K: int, B: int, C: int, P: int,
+                tenant_by_sid: Optional[torch.Tensor] = None,
+                ) -> Tuple[EngineState, SinkSpool, IngestRing]:
+    """The superstep harness: materialise the (K, B) grid from the ring,
+    run the round body over it K times spooling each round's sink, and
+    invalidate the consumed ring slots.  ``round_fn(state, ingest) ->
+    (state, sink)``.  The JAX package's ``lax.scan`` becomes a Python loop
+    that only enqueues device work: nothing inside it reads a value back
+    to the host.  ``tenant_by_sid`` (indexed by sink sids) attributes
+    spool-overflow dead letters to their emitting tenant."""
+    grid = ring_grid(ring, K, B, C)
+    spool = _init_spool(P, C, ring.sid.device)
+    for k in range(K):
+        state, sink = round_fn(state, IngestBatch(*(g[k] for g in grid)))
+        spool, over = spool_append(spool, sink, k)
+        stats = dict(state.stats)
+        _inc(stats, "dropped_spool", _count(over))
+        state = state._replace(stats=stats)
+        s_ten = None if tenant_by_sid is None else _take(
+            tenant_by_sid, torch.clamp(sink.sid, 0,
+                                       tenant_by_sid.shape[0] - 1))
+        state = dlq_append(state, sink.sid, sink.vals, sink.ts, s_ten,
+                           DLQ_SPOOL, over, its=sink.its)
+    return state, spool, ring._replace(valid=ring.valid & (ring.rnd >= K))
+
+
+def make_superstep(cfg: EngineConfig, K: int, fused: Optional[bool] = None,
+                   use_kernel: Optional[bool] = None) -> Callable:
+    """K engine rounds as one call: ``superstep(tables, state, ring) ->
+    (state, spool, ring)``.
+
+    The loop body is the exact four-stage round of :func:`make_step`, so
+    a K-superstep is bit-identical to K sequential ``round()`` calls; what
+    changes is the host boundary: one staged ingest transfer in, one spool
+    readback out, and zero device->host round-trips in between.  Tables
+    are arguments, so admission edits applied *between* supersteps need
+    no new closure."""
+    assert K >= 1
+    step = make_step(cfg, fused=fused, use_kernel=use_kernel)
+    B, C = cfg.batch, cfg.channels
+    P = cfg.spool_slots(K)
+
+    def superstep(tables: DeviceTables, state: EngineState, ring: IngestRing
+                  ) -> Tuple[EngineState, SinkSpool, IngestRing]:
+        return scan_rounds(lambda st, ing: step(tables, st, ing),
+                           state, ring, K, B, C, P, tables.tenant)
+
+    return superstep
+
+
+# --------------------------------------------------------------------------
 # host engine
 # --------------------------------------------------------------------------
 
@@ -821,13 +994,16 @@ def resolve_device(device) -> torch.device:
 
 
 class StreamEngine:
-    """The single-device engine: owns the tables, the state and the round
-    closures of both paths.  Runs on ``device`` (CUDA by default): the
-    kernels launch for CUDA tensors, their plain versions run on the CPU.
-    Single device only: ``cfg.n_shards > 1`` raises."""
+    """The single-device engine: owns the tables, the state, the ingest
+    ring and the round and superstep closures of both paths.  Runs on
+    ``device`` (CUDA by default): the kernels launch for CUDA tensors,
+    their plain versions run on the CPU.  ``use_kernel=False`` runs the
+    plain versions on the card too (what ``chip_smoke.py`` holds the
+    kernels against).  Single device only: ``cfg.n_shards > 1`` raises."""
 
     def __init__(self, registry: Registry, *, device="cuda",
-                 priority: Optional[np.ndarray] = None):
+                 priority: Optional[np.ndarray] = None,
+                 use_kernel: Optional[bool] = None):
         if registry.cfg.n_shards > 1:
             raise NotImplementedError(
                 "cfg.n_shards > 1: the sharded engine is not ported yet "
@@ -835,14 +1011,23 @@ class StreamEngine:
         self.device = resolve_device(device)
         self.cfg = registry.cfg
         self.registry = registry
+        self.use_kernel = use_kernel
         self.tables = DeviceTables.from_host(registry.build_tables(priority),
                                              self.device)
         self.state = init_state(self.cfg, self.device)
-        self._steps: Dict[str, Callable] = {}
-        self._pending: List[Tuple] = []   # (sid, vals, ts, its)
+        # per path: (round closure, {K: superstep closure})
+        self._fns: Dict[str, Tuple[Callable, Dict[int, Callable]]] = {}
+        self._pending: List[List] = []  # [sid, vals, ts, ring_slot|None, its]
         self.admission_rejected = 0
+        # latency plane: the global round counter stamps each post()ed SU;
+        # _last_base is its value just before the latest round()/superstep()
+        # — spool round tags offset from it to the global emission round
         self._rounds_done = 0
+        self._last_base = 0
         self._steps_done = 0
+        self._ring: Optional[IngestRing] = None
+        self._ring_K = 0
+        self._ring_free: List[int] = []
         self._refresh_fusable()
 
     # -------------------------------------------------------------- ingest
@@ -856,12 +1041,15 @@ class StreamEngine:
         v[: len(values)] = values
         if its is None:
             its = self._rounds_done
-        self._pending.append((sid, v, int(ts), int(its)))
+        # 4th field: the SU's ingest-ring slot once its payload is shipped
+        self._pending.append([sid, v, int(ts), None, int(its)])
 
     @staticmethod
     def _select_wave(pending: List, B: int) -> Tuple[List, List]:
         """One round's ingest selection: at most one pending SU per
-        stream (preserving order), at most B total."""
+        stream (preserving order), at most B total.  Shared by
+        ``_take_ingest`` and the superstep staging, so both paths pack SUs
+        into identical rounds."""
         take, rest, seen = [], [], set()
         for item in pending:
             if len(take) < B and item[0] not in seen:
@@ -880,8 +1068,10 @@ class StreamEngine:
         valid = np.zeros((B,), bool)
         its = np.zeros((B,), np.int32)
         take, self._pending = self._select_wave(self._pending, B)
-        for i, (s, v, t, stamp) in enumerate(take):
+        for i, (s, v, t, slot, stamp) in enumerate(take):
             sid[i], vals[i], ts[i], valid[i], its[i] = s, v, t, True, stamp
+            if slot is not None:        # consumed by a round: its staged
+                self._ring_free.append(slot)    # ring slot is free again
         return IngestBatch(*(_tensor(a, self.device)
                              for a in (sid, vals, ts, valid, its)))
 
@@ -889,18 +1079,25 @@ class StreamEngine:
     def round(self) -> SinkBatch:
         """Run one four-stage engine round on the pending ingest batch and
         return the round's external sink."""
-        self.state, sink = self._step(self.tables, self.state,
+        self._last_base = self._rounds_done
+        self.state, sink = self._step(self._run_tables, self.state,
                                       self._take_ingest())
         self._rounds_done += 1
         self._steps_done += 1
         return sink
 
     def drain(self, max_rounds: int = 256) -> List[SinkBatch]:
-        """Run rounds until the queue and the host backlog are empty."""
-        if self.cfg.superstep > 1:
-            raise NotImplementedError(
-                "superstep > 1: the superstep plane is not ported yet "
-                "(ROADMAP.md, queue 1, item 5)")
+        """Run rounds until the queue and the host backlog are empty.  With
+        ``cfg.superstep > 1`` the rounds ride the superstep plane — K
+        rounds per call, one spool readback per superstep — and the
+        returned per-round sinks are rebuilt from the spools (host arrays,
+        bit-identical to the per-round path)."""
+        K = self.cfg.superstep
+        if K > 1:
+            sinks = []
+            for spool in self.drain_spools(K, max_rounds):
+                sinks.extend(self.spool_sinks(spool))
+            return sinks
         sinks = []
         for _ in range(max_rounds):
             busy_host = bool(self._pending)
@@ -908,6 +1105,182 @@ class StreamEngine:
             if not busy_host and not bool(self.state.q_valid.any()):
                 break
         return sinks
+
+    def drain_spools(self, K: Optional[int] = None, max_rounds: int = 256):
+        """Yield one :class:`SinkSpool` per superstep until the host
+        backlog and the device queue are empty.  Rounds are quantised to
+        K; never more than ``max_rounds`` rounds, except that
+        ``max_rounds < K`` still runs one whole superstep."""
+        K = K or self.cfg.superstep
+        for _ in range(max(max_rounds // K, 1)):
+            busy_host = bool(self._pending)
+            yield self.superstep(K)
+            if not busy_host and not bool(self.state.q_valid.any()):
+                break
+
+    # ----------------------------------------------------------- supersteps
+    def _assign_rounds(self, K: int) -> List[Tuple[List, int, int]]:
+        """Pack pending SUs into the (K, B) ingest grid by simulating K
+        sequential ``_take_ingest`` selections; returns ``(entry, round,
+        column)`` triples and leaves the unconsumed tail in ``_pending``."""
+        B = self.cfg.batch
+        assigned, pend = [], self._pending
+        for k in range(K):
+            take, pend = self._select_wave(pend, B)
+            assigned += [(e, k, i) for i, e in enumerate(take)]
+        self._pending = pend
+        return assigned
+
+    def _stage(self, K: int) -> None:
+        """Superstep boundary: assign rounds, ship new payloads into free
+        ring slots and rewrite every slot's routing tag — two host->device
+        copies (the int32 planes and the payloads).  SUs already resident
+        (the overflow queue) are only re-tagged."""
+        R, C = self.cfg.ring_slots(K), self.cfg.channels
+        if self._ring is None or self._ring_K != K:
+            self._ring, self._ring_K = init_ring(self.cfg, K, self.device), K
+            self._ring_free = list(range(R))
+            for e in self._pending:     # slots of the old ring are void
+                e[3] = None
+        assigned = self._assign_rounds(K)
+        # every SU consumed this superstep needs its payload on the device;
+        # spill slots of carried SUs if free ones run out (the host keeps
+        # every payload until consumption and re-ships the victim later)
+        slotted = [e for e in self._pending if e[3] is not None]
+        writes = []
+        for e, _k, _i in assigned:
+            if e[3] is None:
+                if self._ring_free:
+                    e[3] = self._ring_free.pop()
+                else:                   # youngest carried SU spills its slot
+                    victim = slotted.pop()
+                    e[3], victim[3] = victim[3], None
+                writes.append(e)
+        # pre-ship the overflow: the earliest carried SUs claim leftover slots
+        for e in self._pending:
+            if not self._ring_free:
+                break
+            if e[3] is None:
+                e[3] = self._ring_free.pop()
+                writes.append(e)
+        # int32 planes: w_slot, w_sid, w_ts, w_its, rnd, pos, valid
+        ints = np.zeros((7, R), np.int32)
+        ints[0] = R
+        ints[4] = K
+        w_vals = np.zeros((R, C), np.float32)
+        for j, e in enumerate(writes):
+            ints[0:4, j] = e[3], e[0], e[2], e[4]
+            w_vals[j] = e[1]
+        for e, k, i in assigned:
+            ints[4:7, e[3]] = k, i, 1
+        for e in self._pending:
+            if e[3] is not None:
+                ints[6, e[3]] = 1       # carried overflow stays resident
+        d_ints = _tensor(ints, self.device)
+        w_slot, w_sid, w_ts, w_its, rnd, pos, valid = d_ints
+        self._ring = stage_ring(self._ring, w_slot, w_sid,
+                                _tensor(w_vals, self.device), w_ts, w_its,
+                                rnd, pos, valid.bool())
+        self._ring_free += [e[3] for e, _k, _i in assigned]
+
+    def superstep(self, K: Optional[int] = None) -> SinkSpool:
+        """Run K rounds as one superstep: stage the ingest ring, enqueue
+        the K rounds, return the device sink spool (read it back with
+        ``spool_sinks``/``latency_records``)."""
+        K = K or self.cfg.superstep
+        self._stage(K)
+        self._last_base = self._rounds_done
+        spool = self._run_superstep(K)
+        self._rounds_done += K
+        self._steps_done += 1
+        return spool
+
+    def _run_superstep(self, K: int) -> SinkSpool:
+        """The K rounds alone (no staging, no readback): only enqueues
+        device work."""
+        self.state, spool, self._ring = self._superstep_fn(K)(
+            self._run_tables, self.state, self._ring)
+        return spool
+
+    def _superstep_fn(self, K: int) -> Callable:
+        """The current path's K-round closure (built once per (path, K))."""
+        fn = self._supersteps.get(K)
+        if fn is None:
+            fn = self._supersteps[K] = make_superstep(
+                self.cfg, K, fused=self._path == "fused",
+                use_kernel=self.use_kernel)
+        return fn
+
+    def spool_sinks(self, spool: SinkSpool,
+                    K: Optional[int] = None) -> List[SinkBatch]:
+        """Rebuild one superstep's per-round :class:`SinkBatch` list from
+        the spool, as host numpy arrays — bit-identical to K sequential
+        ``round()`` sinks (provided the spool did not overflow).  One
+        readback of the spool."""
+        S, C = self.cfg.sink_buffer, self.cfg.channels
+        sid, vals, ts, its, rnd = (getattr(spool, f).cpu().numpy() for f in (
+            "sid", "vals", "ts", "its", "rnd"))
+        fill = int(spool.fill)
+        K = K or self._ring_K or (int(rnd[:fill].max()) + 1 if fill else 1)
+        sinks = []
+        for k in range(K):
+            b_sid = np.zeros((S,), np.int32)
+            b_vals = np.zeros((S, C), np.float32)
+            b_ts = np.zeros((S,), np.int32)
+            b_valid = np.zeros((S,), bool)
+            b_its = np.zeros((S,), np.int32)
+            idx = np.nonzero(rnd[:fill] == k)[0]
+            n = len(idx)
+            b_sid[:n], b_vals[:n], b_ts[:n] = sid[idx], vals[idx], ts[idx]
+            b_its[:n] = its[idx]
+            b_valid[:n] = True
+            sinks.append(SinkBatch(b_sid, b_vals, b_ts, b_valid, b_its))
+        return sinks
+
+    def latency_records(self, source, base: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
+        """Per-record ingest->sink latency readback — the latency plane's
+        host endpoint.  ``source`` is a :class:`SinkSpool` (one
+        superstep), a :class:`SinkBatch` (one round), or a list of either;
+        ``base`` is the engine-global round of the source's *first* round
+        (default ``_last_base``: the latest ``round()``/``superstep()``).
+        Returns flat host arrays ``{"sid", "tenant", "its", "round",
+        "latency"}`` over the valid records: ``round`` is the global
+        emission round (``base`` + the round within the superstep),
+        ``latency = round - its`` in engine rounds, and ``tenant``
+        resolves through the registry (-1 for unregistered sids)."""
+        if base is None:
+            base = self._last_base
+        sources = source if isinstance(source, list) else [source]
+        batches: List[Tuple[SinkBatch, int]] = []   # (batch, emission round)
+        for src in sources:
+            if isinstance(src, SinkSpool):
+                for k, b in enumerate(self.spool_sinks(src)):
+                    batches.append((b, base + k))
+                base += self._ring_K or 1
+            else:
+                batches.append((src, base))
+                base += 1
+        t_of = np.full((self.cfg.n_streams,), -1, np.int32)
+        for s in self.registry.streams:
+            if s is not None:
+                t_of[s.sid] = s.tenant
+        out = {k: [] for k in ("sid", "tenant", "its", "round", "latency")}
+        for b, rnd in batches:
+            sid, its, valid = (
+                (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                 else np.asarray(x)).reshape(-1)
+                for x in (b.sid, b.its, b.valid))
+            idx = np.nonzero(valid)[0]
+            s = sid[idx].astype(np.int32)
+            i = its[idx].astype(np.int32)
+            out["sid"].append(s)
+            out["tenant"].append(t_of[np.clip(s, 0, t_of.shape[0] - 1)])
+            out["its"].append(i)
+            out["round"].append(np.full(idx.shape, rnd, np.int32))
+            out["latency"].append(np.full(idx.shape, rnd, np.int32) - i)
+        return {k: (np.concatenate(v) if v else np.zeros((0,), np.int32))
+                for k, v in out.items()}
 
     # ---------------------------------------------------------- round paths
     def _round_path(self) -> str:
@@ -918,25 +1291,36 @@ class StreamEngine:
                            and bool(self._fusable_rows.all())) else "staged"
 
     def _select_path(self) -> None:
-        """(Re)install the round closure of the current path."""
+        """(Re)install the round and superstep closures of the current
+        path."""
         self._path = path = self._round_path()
-        step = self._steps.get(path)
-        if step is None:
-            step = self._steps[path] = make_step(self.cfg,
-                                                 fused=path == "fused")
-        self._step = step
+        fns = self._fns.get(path)
+        if fns is None:
+            fns = self._fns[path] = (
+                make_step(self.cfg, fused=path == "fused",
+                          use_kernel=self.use_kernel), {})
+        self._step, self._supersteps = fns
 
     def _refresh_fusable(self) -> None:
-        """Recompute the per-row fusability bitmap from the program table
-        and re-select the round path."""
-        self._fusable_rows = rf_ref.fusable_rows(
-            self.tables.progs.cpu().numpy())
-        self._select_path()
+        """Recompute from the program table the per-row fusability bitmap
+        and the VM's step bound, then re-select the round path.  The round
+        reads the tables with the program table cut to that bound (a NOP
+        tail is the identity), so the VM's trip count is known on the host
+        and no round reads one back."""
+        progs = self.tables.progs.cpu().numpy()
+        self._fusable_rows = rf_ref.fusable_rows(progs)
+        self._cut_programs(progs)
 
     def _note_program(self, row: int, prog: Optional[np.ndarray]) -> None:
-        """Single-row fusability update after a program edit
+        """Single-row update after a program edit of ``tables.progs``
         (``prog=None``: the row is the all-NOP program)."""
         self._fusable_rows[row] = rf_ref.fusable_program(prog)
+        self._cut_programs(self.tables.progs.cpu().numpy())
+
+    def _cut_programs(self, progs: np.ndarray) -> None:
+        self._run_tables = self.tables._replace(
+            progs=self.tables.progs[:, :pvm.program_steps(progs)]
+            .contiguous())
         self._select_path()
 
     # ----------------------------------------------------- tenant QoS plane
@@ -1053,7 +1437,7 @@ class StreamEngine:
         arrays["pending/vals"] = (np.stack([e[1] for e in p]).astype(np.float32)
                                   if p else np.zeros((0, C), np.float32))
         arrays["pending/ts"] = np.array([e[2] for e in p], np.int32)
-        arrays["pending/its"] = np.array([e[3] for e in p], np.int32)
+        arrays["pending/its"] = np.array([e[4] for e in p], np.int32)
         meta = {"format": 1, "kind": "single",
                 "registry": self.registry.to_snapshot(),
                 "admission_rejected": self.admission_rejected,
@@ -1076,12 +1460,15 @@ class StreamEngine:
         self.state = EngineState(**st)
         p_sid, p_vals, p_ts, p_its = (arrays[f"pending/{k}"]
                                       for k in ("sid", "vals", "ts", "its"))
-        self._pending = [(int(p_sid[i]), np.array(p_vals[i], np.float32),
-                          int(p_ts[i]), int(p_its[i]))
+        # ring slots are per engine: restored SUs re-stage from here
+        self._pending = [[int(p_sid[i]), np.array(p_vals[i], np.float32),
+                          int(p_ts[i]), None, int(p_its[i])]
                          for i in range(p_sid.shape[0])]
         self.admission_rejected = int(meta.get("admission_rejected", 0))
         self._steps_done = int(meta.get("steps_done", 0))
         self._rounds_done = int(meta.get("rounds_done", 0))
+        self._last_base = self._rounds_done
+        self._ring, self._ring_K, self._ring_free = None, 0, []
         self._refresh_fusable()
 
 

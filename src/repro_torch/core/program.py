@@ -216,18 +216,24 @@ def execute_batch(progs: torch.Tensor, consts: torch.Tensor,
     progs:  (W, L, 4) int32 — (op, dst, a, b); NOP-padded.
     consts: (W, K) float32 constant pools.
     regs:   (W, R) float32 initial register files.
-    Returns the final register files.  The loop stops after the last
-    instruction that is not a NOP in any lane (a NOP writes its ``dst``
-    back unchanged, so the tail is skipped bit-exactly); finding that
-    bound reads one integer back to the host."""
-    L = progs.shape[1]
-    if progs.shape[0] == 0 or L == 0:
+    Returns the final register files.  All L steps run, as the JAX
+    package's ``fori_loop`` does, so nothing is read back to the host; a
+    caller that knows a shorter bound passes the table cut to it (a NOP
+    writes its ``dst`` back unchanged, so a NOP tail is the identity —
+    see :func:`program_steps`)."""
+    if progs.shape[0] == 0:
         return regs
-    steps = torch.arange(1, L + 1, device=progs.device)
-    l_eff = int(torch.where(progs[..., 0] != OP_NOP, steps, 0).max())
-    for i in range(l_eff):
+    for i in range(progs.shape[1]):
         regs = step_batch(ops, progs[:, i, :], consts, regs)
     return regs
+
+
+def program_steps(progs: np.ndarray) -> int:
+    """Steps a host ``(N, L, 4)`` program table needs: one past the last
+    instruction that is not a NOP in any row (at least 1).  Cutting the
+    table to this many steps leaves every program's result unchanged."""
+    live = np.nonzero((np.asarray(progs)[..., 0] != OP_NOP).any(axis=0))[0]
+    return int(live[-1]) + 1 if live.size else 1
 
 
 def execute(prog: torch.Tensor, consts: torch.Tensor, regs: torch.Tensor

@@ -93,7 +93,7 @@ _FUSED_OPS = tuple(sorted(FUSABLE_OPS))
 def execute_batch_fused(progs, consts, regs) -> torch.Tensor:
     """``pvm.execute_batch`` restricted to :data:`FUSABLE_OPS` —
     bit-identical to it for fusable programs, NOP on the transcendental
-    opcodes; the loop runs through the last non-NOP instruction."""
+    opcodes."""
     return pvm.execute_batch(progs, consts, regs, ops=_FUSED_OPS)
 
 

@@ -54,9 +54,10 @@ def sched_pop_ref(prio, seq, valid, tenant, w_slot, batch: int
         c2 = c1 & (tag == m2)
         m3 = torch.where(c2, seq, big).min()
         c3 = c2 & (seq == m3)
-        i = torch.where(c3, iota, Q).min().long()
-        was_valid = valid[i]
-        t_i, w_i = tenant[i], w_slot[i]
+        # a (1,) index: a 0-dim one would be read back to the host
+        i = torch.where(c3, iota, Q).min().long().reshape(1)
+        was_valid = valid[i][0]
+        t_i, w_i = tenant[i][0], w_slot[i][0]
         # valid pops of t_i so far, this one included (prior pops ride in
         # the (batch,) history; invalid pops record -2, no tenant's id)
         cnt = (pop_ten == t_i).sum(dtype=i32) + was_valid.to(i32)
@@ -65,8 +66,8 @@ def sched_pop_ref(prio, seq, valid, tenant, w_slot, batch: int
                              rank * FAIR_SCALE // torch.clamp(w_i, min=1), 0)
         bump = was_valid & (tenant == t_i) & valid & (w_i > 0) & (tag != INT_MAX)
         tag = torch.where(bump, tagval.to(i32), tag)
-        tag[i] = INT_MAX
-        key[i] = INT_MAX
+        tag.index_fill_(0, i, INT_MAX)
+        key.index_fill_(0, i, INT_MAX)
         pop_ten[b] = torch.where(was_valid, t_i, -2)
-        take[b] = i.to(i32)
+        take[b] = i[0].to(i32)
     return take

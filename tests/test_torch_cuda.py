@@ -29,7 +29,7 @@ def dev():
 
 
 def _bits(x):
-    a = x.cpu().numpy()
+    a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return a.view(np.int32) if a.dtype == np.float32 else a
 
 
@@ -139,3 +139,102 @@ def test_engine_on_the_card_equals_the_cpu(dev, fused):
                     _assert_bits(eg.state.stats[k], ec.state.stats[k])
             else:
                 _assert_bits(getattr(eg.state, f), getattr(ec.state, f))
+
+
+@pytest.mark.parametrize("W,C", [(1, 1), (8, 4), (33, 1), (256, 4)])
+def test_window_agg_kernel_matches_plain(dev, W, C):
+    from repro_torch.kernels.window_agg.kernel import window_agg_call
+    from repro_torch.kernels.window_agg.ops import window_agg
+    rng = np.random.default_rng(W + C)
+    N = 37                              # not a multiple of a CTA's streams
+    v = (rng.standard_normal((N, W, C)) * 10).astype(np.float32)
+    flat = v.reshape(-1)
+    flat[rng.integers(0, v.size, 6)] = -0.0
+    flat[rng.integers(0, v.size, 6)] = 1e-40
+    v[2, 0, 0] = np.nan
+    count = rng.integers(0, W + 1, N).astype(np.int32)
+    count[0], count[1] = 0, W
+    values, cnt = torch.from_numpy(v).to(dev), torch.from_numpy(count).to(dev)
+    before = window_agg_call.launches
+    got = window_agg_call(values, cnt)
+    assert window_agg_call.launches == before + 1
+    want = window_agg(values, cnt, use_kernel=False)
+    for k in want:
+        _assert_bits(got[k], want[k])
+
+
+def _superstep_engine(device, fused, **kw):
+    from repro_torch.core import EngineConfig as Cfg
+    cfg = Cfg(n_streams=16, n_tenants=4, batch=8, queue=64, max_in=4,
+              max_out=4, prog_len=24, n_temps=12, dlq_slots=8,
+              fused_round=fused, **kw)
+    reg = Registry.with_capacity(cfg)
+    t = reg.create_tenant("t")
+    srcs = [reg.create_stream(t, f"s{i}", ["v"]) for i in range(4)]
+    c0 = reg.create_composite(t, "c0", ["v"], [srcs[0]], {"v": "in0.v + 1"})
+    c1 = reg.create_composite(t, "c1", ["v"], [srcs[0], srcs[1]],
+                              {"v": "in0.v + in1.v * 2"})
+    reg.create_composite(t, "c2", ["v"], [srcs[2]], {"v": "in0.v * 3"},
+                         post_filter="out.v < 1e6")
+    reg.create_composite(t, "c3", ["v"], [c0, c1], {"v": "in0.v - in1.v"})
+    eng = create_engine(reg, device=device)
+    for w in range(3):
+        for i, s in enumerate(srcs):
+            eng.post(s, [float(10 * w + i)], 8 * w + 1)
+        for b in range(5):
+            eng.post(srcs[2], [float(100 * w + b)], 8 * w + 3 + b)
+    return eng
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_superstep_on_the_card_equals_rounds(dev, fused):
+    """Two supersteps of K = 3 on the card, their K rounds under the sync
+    debug mode (no host synchronisation), equal six rounds on the card and
+    the same supersteps on the CPU, bit for bit."""
+    es = _superstep_engine(dev, fused)
+    er = _superstep_engine(dev, fused)
+    ec = _superstep_engine("cpu", fused)
+    for _ in range(2):
+        es._stage(3)
+        es._last_base = es._rounds_done
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            spool = es._run_superstep(3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        es._rounds_done += 3
+        sinks = es.spool_sinks(spool)
+        rounds = [er.round() for _ in range(3)]
+        cpu = ec.spool_sinks(ec.superstep(3))
+        for a, b, c in zip(sinks, rounds, cpu):
+            for x, y, z in zip(a, b, c):
+                np.testing.assert_array_equal(_bits(x), _bits(y))
+                np.testing.assert_array_equal(_bits(x), _bits(z))
+    for f in es.state._fields:
+        if f == "stats":
+            for k in es.state.stats:
+                _assert_bits(es.state.stats[k], er.state.stats[k])
+                _assert_bits(es.state.stats[k], ec.state.stats[k])
+        else:
+            _assert_bits(getattr(es.state, f), getattr(er.state, f))
+            _assert_bits(getattr(es.state, f), getattr(ec.state, f))
+
+
+def test_iot_suite_on_the_card_equals_the_cpu(dev):
+    """The ETL + STATS suite through supersteps, kernels on the card
+    against the plain versions on the CPU: records, SLO report and window
+    aggregates bit for bit."""
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    out = []
+    for device in (dev, "cpu"):
+        suite = build_suite(6, kinds=("etl", "stats"), window=16,
+                            trace=TraceConfig(n_devices=6, rounds=10,
+                                              seed=4),
+                            cfg_overrides={"superstep": 3}, device=device)
+        out.append(drive(suite, 3))
+    a, b = out
+    assert a["records"] == b["records"] > 0
+    assert a["slo_report"] == b["slo_report"]
+    for k in a["aggregates"]:
+        np.testing.assert_array_equal(a["aggregates"][k].view(np.int32),
+                                      b["aggregates"][k].view(np.int32))

@@ -253,11 +253,9 @@ def test_engine_defaults_to_cuda_and_refuses_the_cpu_silently():
 
 
 def test_unported_planes_raise():
-    reg = P.Registry(P.EngineConfig(n_streams=4, batch=2, queue=4,
-                                    superstep=3))
-    eng = P.create_engine(reg, device="cpu")
-    with pytest.raises(NotImplementedError, match="superstep"):
-        eng.drain()
+    from repro_torch.workloads import build_suite
+    with pytest.raises(NotImplementedError, match="serving bridge"):
+        build_suite(2, kinds=("pred",), device="cpu")
     sharded = P.Registry(P.EngineConfig(n_streams=4, batch=2, queue=4,
                                         n_shards=2))
     with pytest.raises(NotImplementedError, match="shard"):

@@ -24,7 +24,13 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
-    assert "repro_torch.core.engine" in mods
+    for m in ("repro_torch.core.engine", "repro_torch.core.windows",
+              "repro_torch.core.slo", "repro_torch.kernels.window_agg.ops",
+              "repro_torch.kernels.window_agg.kernel",
+              "repro_torch.workloads.dataflows",
+              "repro_torch.workloads.runner",
+              "repro_torch.workloads.traces"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

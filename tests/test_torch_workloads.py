@@ -1,0 +1,173 @@
+"""The port's IoT workload suite (ETL + STATS through supersteps) against
+the JAX package's, bitwise: per-superstep latency records, the SLO
+histograms and report, the engine's counters and the window aggregates,
+on both round paths at K in {1, 3}.  Also the latency plane's pin (sink
+records carry global emission rounds), the copied trace and SLO tracker,
+and the planes that are not ported yet raising."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import repro.workloads as JWL  # noqa: E402
+import repro_torch.workloads as PWL  # noqa: E402
+from repro.core import EngineConfig as JCfg, Registry as JReg  # noqa: E402
+from repro.core import create_engine as j_create  # noqa: E402
+from repro.core.slo import SLOTracker as JSLO  # noqa: E402
+from repro.core.slo import weights_from_slo as j_weights  # noqa: E402
+from repro.workloads.runner import sink_records as j_sink_records  # noqa: E402
+from repro_torch.core import EngineConfig, Registry, create_engine  # noqa: E402
+from repro_torch.core.slo import SLOTracker, weights_from_slo  # noqa: E402
+from repro_torch.workloads.runner import sink_records, wire_pred  # noqa: E402
+
+PATHS = pytest.mark.parametrize("fused", [True, False],
+                                ids=["fused", "staged"])
+
+
+def _bits(a):
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _suite(pkg, fused, K, **kw):
+    extra = {"device": "cpu"} if pkg is PWL else {}
+    return pkg.build_suite(
+        4, kinds=("etl", "stats"), fused_round=fused,
+        trace=pkg.TraceConfig(n_devices=4, rounds=8, seed=11),
+        cfg_overrides={"superstep": K}, **extra, **kw)
+
+
+def _drive_suite(pkg, fused, K):
+    """tests/test_iot_latency.py's ``_drive_suite``: per-superstep
+    latency records, folded into the SLO tracker."""
+    suite = _suite(pkg, fused, K)
+    sink_recs = j_sink_records if pkg is JWL else sink_records
+    eng = suite.engine
+    per_step = []
+    for k, dev, vals in suite.trace.steps():
+        for d, v in zip(dev, vals):
+            eng.post(suite.flows[d].source, [float(v)], ts=k + 1)
+        per_step.append(eng.latency_records(eng.superstep(K)))
+    for _ in range(3):
+        per_step.append(eng.latency_records(eng.superstep(K)))
+    for recs in per_step:
+        suite.slo.observe(sink_recs(recs, suite.sink_sids))
+    return suite, per_step
+
+
+@PATHS
+@pytest.mark.parametrize("K", [1, 3])
+def test_latency_records_and_slo_bitwise(fused, K):
+    sj, rj = _drive_suite(JWL, fused, K)
+    sp, rp = _drive_suite(PWL, fused, K)
+    assert sp.engine._path == sj.engine._path == (
+        "fused" if fused else "staged")
+    assert len(rj) == len(rp)
+    for x, y in zip(rj, rp):
+        assert x.keys() == y.keys()
+        for key in x:
+            np.testing.assert_array_equal(x[key], y[key], err_msg=key)
+    assert sum(r["sid"].size for r in rp) > 0
+    np.testing.assert_array_equal(sj.slo.hist, sp.slo.hist)
+    np.testing.assert_array_equal(sj.slo.violations, sp.slo.violations)
+    assert sj.slo.slo_report() == sp.slo.slo_report()
+
+
+@PATHS
+@pytest.mark.parametrize("K", [1, 3])
+def test_drive_bitwise(fused, K):
+    """``drive()`` end to end: records, SLO report, the five window
+    aggregates (bitwise: W = 8 <= 32), and the engine's counters."""
+    sj, sp = _suite(JWL, fused, K), _suite(PWL, fused, K)
+    rj, rp = JWL.drive(sj, K), PWL.drive(sp, K)
+    assert rp["records"] == rj["records"] > 0
+    assert rp["slo_report"] == rj["slo_report"]
+    assert rp["aggregates"].keys() == rj["aggregates"].keys()
+    for k in rj["aggregates"]:
+        np.testing.assert_array_equal(_bits(rp["aggregates"][k]),
+                                      _bits(rj["aggregates"][k]), err_msg=k)
+    assert rp["aggregates"]["count"].any()
+    assert sp.engine.counters() == sj.engine.counters()
+    for f in ("values", "timestamps", "q_valid", "tenant_emitted"):
+        np.testing.assert_array_equal(
+            _bits(getattr(sp.engine.state, f)),
+            _bits(getattr(sj.engine.state, f)), err_msg=f)
+    store_j, store_p = sj.stats.store, sp.stats.store
+    for f in store_j._fields:
+        np.testing.assert_array_equal(_bits(getattr(store_p, f)),
+                                      _bits(getattr(store_j, f)), err_msg=f)
+
+
+def _chain_cfg(mod):
+    return mod(n_streams=16, n_tenants=4, channels=2, max_in=2, max_out=2,
+              batch=8, queue=64, prog_len=16, n_temps=8, sink_buffer=16,
+              superstep=3, dlq_slots=8, exchange_slots=0).validate()
+
+
+def test_superstep_round_attribution_is_global():
+    """Records of the second superstep carry engine-global emission
+    rounds (base + round within the superstep), as in ``repro``."""
+    out = []
+    for Cfg, Reg, create, kw in ((JCfg, JReg, j_create, {}),
+                                 (EngineConfig, Registry, create_engine,
+                                  {"device": "cpu"})):
+        reg = Reg.with_capacity(_chain_cfg(Cfg))
+        t = reg.create_tenant("t")
+        a = reg.create_stream(t, "a", ["v"])
+        b = reg.create_composite(t, "b", ["v"], [a], {"v": "in0.v + 1"})
+        c = reg.create_composite(t, "c", ["v"], [b], {"v": "in0.v * 2"})
+        eng = create(reg, **kw)
+        eng.post(a, [1.0], ts=1)
+        r1 = eng.latency_records(eng.superstep(3))
+        eng.post(a, [2.0], ts=2)                 # stamped its = 3
+        r2 = eng.latency_records(eng.superstep(3))
+        out.append((r1, r2))
+        if create is create_engine:
+            assert dict(zip(r1["sid"].tolist(), r1["round"].tolist())) == \
+                {b.sid: 0, c.sid: 1}
+            assert dict(zip(r2["sid"].tolist(), r2["round"].tolist())) == \
+                {b.sid: 3, c.sid: 4}
+            assert np.all(r2["its"] == 3)
+            assert sorted(r2["latency"].tolist()) == [0, 1]
+    for x, y in zip(out[0], out[1]):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+
+def test_trace_and_slo_tracker_match_jax():
+    """The copied trace gives the same schedule from the same config, and
+    the copied tracker the same histograms, report and weights."""
+    cfg = dict(n_devices=9, rounds=20, seed=5, burst_prob=0.2)
+    for (kj, dj, vj), (kp, dp, vp) in zip(
+            JWL.SensorTrace(JWL.TraceConfig(**cfg)).steps(),
+            PWL.SensorTrace(PWL.TraceConfig(**cfg)).steps()):
+        assert kj == kp
+        np.testing.assert_array_equal(dj, dp)
+        np.testing.assert_array_equal(vj.view(np.int32), vp.view(np.int32))
+    rng = np.random.default_rng(0)
+    tj = JSLO(5, n_buckets=16, bucket_width=2, slo={1: 3, 2: 0})
+    tp = SLOTracker(5, n_buckets=16, bucket_width=2, slo={1: 3, 2: 0})
+    for _ in range(4):
+        recs = {"tenant": rng.integers(-1, 6, 50),
+                "latency": rng.integers(0, 40, 50)}
+        assert tj.observe(recs) == tp.observe(recs)
+    np.testing.assert_array_equal(tj.hist, tp.hist)
+    assert tj.slo_report() == tp.slo_report()
+    np.testing.assert_array_equal(j_weights(tj, boost=5),
+                                  weights_from_slo(tp, boost=5))
+
+
+def test_unported_workload_planes_raise():
+    with pytest.raises(NotImplementedError, match="serving bridge"):
+        PWL.build_suite(3, kinds=("etl", "pred"), device="cpu")
+    with pytest.raises(NotImplementedError, match="shard"):
+        PWL.build_suite(3, n_shards=2, device="cpu")
+    suite = PWL.build_suite(2, trace=PWL.TraceConfig(n_devices=2, rounds=1),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="autoscaler"):
+        PWL.drive(suite, scaler=object())
+    with pytest.raises(NotImplementedError, match="serving bridge"):
+        wire_pred(suite, batcher=None)
+    with pytest.raises(NotImplementedError, match="serving bridge"):
+        PWL.build_pred(suite.registry, suite.registry.tenants[0])
