@@ -12,25 +12,30 @@ Phases, each printed on its own line:
    build time, ptxas' register/shared-memory report and the card.
 2. Hold each kernel bit for bit against its plain torch version on the
    card: ``sched_pop`` at Q=2048, B=64, C=4, ``fused_round`` at the
-   default engine widths, and ``window_agg`` at W in {1, 8, 33, 256,
-   1024} and C in {1, 4} with N a multiple of no CTA's stream count, on
+   default engine widths, ``window_agg`` at W in {1, 8, 33, 256, 1024}
+   and C in {1, 4} with N a multiple of no CTA's stream count,
+   ``exchange_compact`` at the 4-shard smoke shape (4 senders of 1,024
+   items, 4 x 1,024 slots) and at D in {1, 2, 3, 8} with overflow,
+   every item to one shard, unrouted lanes and W not a multiple of the
+   block, and ``apply_programs`` at 4 shards x 4,096 items against 1,024
+   table rows and a 4,096-row snapshot and at smaller odd shapes, on
    adversarial inputs (NaN, -0.0, subnormals, empty and full windows).
 3. Drive the fused main path (``StreamEngine.round``) at the default
-   ``EngineConfig`` widths with 4,096 streams for 64 rounds, once through
+   ``EngineConfig`` widths with 4,096 streams for 48 rounds, once through
    the kernels and once through their plain versions; every state leaf,
    stat and sink must agree bitwise, and ``fused_round`` must have
    launched once per round.
-4. The same registry through eight supersteps of K = 8
+4. The same registry through six supersteps of K = 8
    (``StreamEngine.superstep``), each K rounds run under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
-   between the staging copy and the spool readback), against 64 eager
+   between the staging copy and the spool readback), against 48 eager
    rounds on a second engine: every state leaf, stat and per-round sink
    bitwise; ms per superstep beside K x ms per eager round.
 5. The same registry plus one ``tanh`` composite flips the engine to the
-   staged path; phase 3's comparison over 24 rounds, and ``sched_pop``
+   staged path; phase 3's comparison over 16 rounds, and ``sched_pop``
    must have launched once per round.
-6. Phase 4 on the staged path: three supersteps of K = 8 against 24
-   eager rounds.
+6. Phase 4 on the staged path: two supersteps of K = 8 against 16 eager
+   rounds.
 7. The IoT suite at full width (1,024 tenants of ETL and STATS flows,
    3,586 streams, a 256-entry window store of 14.7 MB) replayed by
    ``repro_torch.workloads.drive`` through supersteps of K = 8, once
@@ -38,13 +43,36 @@ Phases, each printed on its own line:
    state, every latency record, the SLO histograms and report, the window
    store and the five aggregates bitwise; wall time, supersteps/s and
    records/s of the kernel run.
-8. Time each kernel at the main path's shapes (CUDA events around many
-   back-to-back launches with the host preparation done beforehand, and
-   ``torch.profiler``'s device time per CUDA kernel) beside its plain
-   version, and work out its bound from the bytes this run's data needs
-   and from its operations (for the two pops, the dependent chain of
-   their selection steps, the card's cycles per dependent instruction
-   measured here by a one-thread probe).
+8. The sharded fused round: phase 3's registry on 4 shards emulated on
+   the card (``exchange_slots=0``: 1,024 slots per destination, 4,096
+   applied items per shard), through the kernels and through their plain
+   versions, with live churn every third wave (admit a composite, revoke
+   an earlier one, swap a program, ``rebalance``), table storage
+   unchanged; drained waves of two SUs, after each of which the 4-shard
+   engine must hold the single-device engine's values, timestamps and
+   counters; then 24 heavy rounds of 64 posted SUs, the last 16 timed
+   (the engine ingests one batch per round across all shards; the
+   warm-up builds the emission backlog that fills the shards' pops).  ``sched_pop``, ``exchange_compact`` and
+   ``apply_programs`` must have launched 4, 1 and 1 times per round.
+9. Phase 4 on the 4-shard fused engine: three supersteps of K = 8 under
+   the sync debug mode against 24 eager sharded rounds.
+10. Phase 8 on the staged path (phase 5's registry), kernels against
+    plain, 16 heavy rounds, the last 8 timed; ``exchange_compact`` must
+    have launched once per round, ``apply_programs`` never.
+11. The IoT suite at 128 tenants, where every round drains, at 4 shards
+    against 1 shard, both through the kernels: latency histograms, SLO
+    report, records, window aggregates and counters equal.  Then phase 7
+    on 4 shards: the full-width suite through the kernels and through
+    their plain versions, bitwise.
+12. Time each kernel at the main path's shapes (CUDA events around many
+    back-to-back launches with the host preparation done beforehand, and
+    ``torch.profiler``'s device time per CUDA kernel; the sharded
+    kernels' inputs are recorded from one more heavy round of phase 8's
+    engine)
+    beside its plain version, and work out its bound from the bytes this
+    run's data needs and from its operations (for the two pops, the
+    dependent chain of their selection steps, the card's cycles per
+    dependent instruction measured here by a one-thread probe).
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -377,6 +405,117 @@ def phase_kernels(torch, dev, cfg_defaults):
     return errs
 
 
+def exchange_case(rng, D, W, C, E, mode):
+    """Work items of D senders for ``exchange_compact``: ``mode``
+    "mixed" (random destinations, a quarter unrouted, some dest past D),
+    "one" (every routed item to shard 0, so buckets overflow) or
+    "none" (every lane unrouted); NaN, -0.0, inf and subnormal payloads."""
+    import numpy as np
+    wi_t = rng.integers(-1, 50000, (D, W)).astype(np.int32)
+    wi_src = rng.integers(-5, 50000, (D, W)).astype(np.int32)
+    wi_ts = rng.integers(-2**31 + 1, 2**31 - 1, (D, W)).astype(np.int32)
+    wi_its = rng.integers(0, 1 << 20, (D, W)).astype(np.int32)
+    vals = rng.standard_normal((D, W, C)).astype(np.float32)
+    flat = vals.reshape(-1)
+    for x in (np.nan, -0.0, np.inf, 1e-40):
+        flat[rng.integers(0, flat.size, 16)] = x
+    flat[rng.integers(0, flat.size, 4)] = np.frombuffer(
+        np.uint32(0x7fc12345).tobytes(), np.float32)[0]      # NaN payload
+    if mode == "mixed":
+        dest = rng.integers(0, D + 2, (D, W)).astype(np.int32)
+        dest[rng.random((D, W)) < 0.25] = D
+    elif mode == "one":
+        dest = np.where(rng.random((D, W)) < 0.9, 0, D).astype(np.int32)
+    else:
+        dest = np.full((D, W), D, np.int32)
+    return wi_t, wi_src, wi_ts, wi_its, vals, dest
+
+
+def apply_case(rng, cfg, S, n_tab, n_snap, W):
+    """Inputs of the sharded post-exchange apply: S shards of ``n_tab``
+    table rows and W items each, against one ``n_snap``-row snapshot.
+    Rows and targets in range (the round clips them); co-input sids from
+    -2 past n_snap; random fusable bytecode with over-range operands;
+    NaN, -0.0 and subnormal snapshot values; revoked and non-composite
+    rows; a random item mask."""
+    import numpy as np
+    from repro_torch.kernels.round_fuse import ref as rf_ref
+    M, L, K, C = cfg.max_in, cfg.prog_len, cfg.n_consts, cfg.channels
+    R = rf_ref.RegLayout.from_cfg(cfg).n_regs
+    ops_pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
+    progs = np.stack([rng.choice(ops_pool, (S, n_tab, L)),
+                      rng.integers(0, R + 6, (S, n_tab, L)),
+                      rng.integers(0, R + 6, (S, n_tab, L)),
+                      rng.integers(0, R + 6, (S, n_tab, L))],
+                     axis=-1).astype(np.int32)
+    progs[..., L // 2:, 0] = np.where(
+        rng.random((S, n_tab, L - L // 2)) < 0.5, 0, progs[..., L // 2:, 0])
+    values = rng.standard_normal((n_snap, C)).astype(np.float32)
+    values.ravel()[rng.integers(0, n_snap * C, 16)] = np.nan
+    values.ravel()[rng.integers(0, n_snap * C, 16)] = -0.0
+    values.ravel()[rng.integers(0, n_snap * C, 8)] = 1e-40
+    vals = rng.standard_normal((S, W, C)).astype(np.float32)
+    vals.ravel()[rng.integers(0, vals.size, 8)] = np.nan
+    return (rng.integers(-2, n_snap + 4, (S, n_tab, M)).astype(np.int32),
+            progs, rng.standard_normal((S, n_tab, K)).astype(np.float32),
+            rng.random((S, n_tab)) < 0.75, rng.random((S, n_tab)) < 0.9,
+            rng.integers(0, n_tab, (S, W)).astype(np.int32),
+            rng.integers(0, n_snap, (S, W)).astype(np.int32),
+            rng.integers(-3, n_snap + 3, (S, W)).astype(np.int32), vals,
+            rng.integers(-5, 40, (S, W)).astype(np.int32),
+            rng.random((S, W)) < 0.8, values,
+            rng.integers(-5, 40, n_snap).astype(np.int32))
+
+
+def phase_shard_kernels(torch, dev, cfg, D):
+    """``apply_programs`` and ``exchange_compact`` bitwise against their
+    plain versions: the smoke shapes of the D-shard round (W = batch x
+    max_out items per sender, E = W slots; D x E applied items per shard,
+    n_local = N / D table rows against an N-row snapshot) and adversarial
+    cases.  Returns the max abs error of each (0.0)."""
+    import numpy as np
+    from repro_torch.kernels.round_fuse import ref as rf_ref
+    from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
+                                                       exchange_compact_call)
+    from repro_torch.kernels.round_fuse.ops import (apply_programs,
+                                                    exchange_compact)
+    rng = np.random.default_rng(SEED + 3)
+    layout = rf_ref.RegLayout.from_cfg(cfg)
+    W, N = cfg.work, cfg.n_streams
+    err_x, shapes = 0.0, []
+    for (Dx, Wx, E, mode) in [(D, W, W, "mixed"), (D, W, 64, "mixed"),
+                              (D, W, 64, "one"), (D, W, W, "none"),
+                              (1, 1000, 7, "mixed"), (2, 77, 5, "one"),
+                              (3, 1000, 300, "mixed"), (8, 1024, 100, "mixed"),
+                              (8, 129, 1, "one")]:
+        case = [torch.from_numpy(a).to(dev)
+                for a in exchange_case(rng, Dx, Wx, cfg.channels, E, mode)]
+        got = exchange_compact_call(*case, Dx, E)
+        want = exchange_compact(*case, Dx, E, use_kernel=False)
+        torch.cuda.synchronize()
+        err_x = max(err_x, compare(f"exchange_compact D={Dx} W={Wx} E={E} "
+                                   f"{mode}", got, want))
+        shapes.append(f"({Dx}, {Wx}, E={E}, {mode})")
+    print(f"[kernels] exchange_compact at {', '.join(shapes)}: buckets, "
+          f"payload bits and overflow mask bitwise equal to the plain "
+          f"version", flush=True)
+    err_a, shapes = 0.0, []
+    for (S, n_tab, n_snap, Wa) in [(D, N // D, N, D * W), (3, 100, 333, 257),
+                                   (1, 64, 64, 130)]:
+        c = [torch.from_numpy(a).to(dev)
+             for a in apply_case(rng, cfg, S, n_tab, n_snap, Wa)]
+        got = apply_programs_call(layout, *c)
+        want = apply_programs(layout, *c, use_kernel=False)
+        torch.cuda.synchronize()
+        err_a = max(err_a, compare(f"apply_programs S={S} n_tab={n_tab} "
+                                   f"n_snap={n_snap} W={Wa}", got, want))
+        shapes.append(f"{S} shards x {Wa} items, {n_tab} table rows, "
+                      f"{n_snap} snapshot rows")
+    print(f"[kernels] apply_programs at {'; '.join(shapes)}: all seven "
+          f"outputs bitwise equal to the plain version", flush=True)
+    return {"exchange_compact": err_x, "apply_programs": err_a}
+
+
 # --------------------------------------------------------------------------
 # phases 3-4: the main path at full width
 # --------------------------------------------------------------------------
@@ -428,15 +567,19 @@ def build_registry(cfg, rng, streams_per_tenant=255, source_share=0.25):
     return reg, streams[:n_sources]
 
 
-def drive(torch, eng, sources, rounds, seed, per_round, warmup=0):
+def drive(torch, eng, sources, rounds, seed, per_round, warmup=0,
+          at_warm=None):
     """Post ``per_round`` SUs to distinct random sources and run one
     round, ``rounds`` times.  Returns the sinks of every round and the
-    wall seconds of the rounds after the first ``warmup``."""
+    wall seconds of the rounds after the first ``warmup`` (``at_warm()``
+    is called just before them)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     sinks = []
     for r in range(rounds):
         if r == warmup:
+            if at_warm is not None:
+                at_warm()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         for j in rng.choice(len(sources), per_round, replace=False):
@@ -603,14 +746,15 @@ SUITE = dict(n_tenants=1024, batch=64, queue=2048, window=256, rounds=32,
              K=8)
 
 
-def run_suite(torch, dev, use_kernel, counters):
-    """Build the full-width suite and replay its trace once; every launch
-    counter is 0 just before ``drive``.  Returns (suite, drive's result,
-    the latency records of every superstep, wall seconds of ``drive``)."""
+def run_suite(torch, dev, use_kernel, counters, n_shards=1):
+    """Build the full-width suite on ``n_shards`` shards and replay its
+    trace once; every launch counter is 0 just before ``drive``.  Returns
+    (suite, drive's result, the latency records of every superstep, wall
+    seconds of ``drive``)."""
     from repro_torch.workloads import TraceConfig, build_suite, drive
     suite = build_suite(
         SUITE["n_tenants"], kinds=("etl", "stats"), batch=SUITE["batch"],
-        queue=SUITE["queue"], window=SUITE["window"],
+        queue=SUITE["queue"], window=SUITE["window"], n_shards=n_shards,
         trace=TraceConfig(n_devices=SUITE["n_tenants"],
                           rounds=SUITE["rounds"], seed=0),
         cfg_overrides={"superstep": SUITE["K"]}, device=dev,
@@ -635,41 +779,48 @@ def run_suite(torch, dev, use_kernel, counters):
     return suite, out, log, time.perf_counter() - t0
 
 
-def phase_suite(torch, dev, counters):
-    """The suite through the kernels and through their plain versions,
-    compared bitwise; returns (kernel suite, launches per kernel)."""
+def phase_suite(torch, dev, counters, n_shards=1):
+    """The suite on ``n_shards`` shards through the kernels and through
+    their plain versions, compared bitwise; returns (kernel suite,
+    launches per kernel)."""
     import numpy as np
+    tag = "suite" if n_shards == 1 else f"sharded suite D={n_shards}"
     t0 = time.perf_counter()
-    sp, outp, logp, _ = run_suite(torch, dev, False, counters)
+    sp, outp, logp, _ = run_suite(torch, dev, False, counters, n_shards)
     build_and_plain = time.perf_counter() - t0
-    sk, outk, logk, wall = run_suite(torch, dev, None, counters)
+    sk, outk, logk, wall = run_suite(torch, dev, None, counters, n_shards)
     launches = {c.__name__: c.launches for c in counters}
     n_steps = SUITE["rounds"] + 4
-    if launches["fused_round_call"] != n_steps * SUITE["K"] \
+    rounds = n_steps * SUITE["K"]
+    want = {"fused_round_call": rounds} if n_shards == 1 else {
+        "sched_pop_call": n_shards * rounds, "apply_programs_call": rounds,
+        "exchange_compact_call": rounds}
+    if any(launches[k] != n for k, n in want.items()) \
             or launches["window_agg_call"] < 1:
-        fail(f"IoT suite: launches {launches} in {n_steps} supersteps")
-    compare_engines("suite", sk.engine, [], sp.engine, [])
+        fail(f"IoT {tag}: launches {launches} in {n_steps} supersteps")
+    compare_engines(tag, sk.engine, [], sp.engine, [])
     if len(logk) != len(logp):
-        fail("IoT suite: a different number of latency readbacks")
+        fail(f"IoT {tag}: a different number of latency readbacks")
     for i, (a, b) in enumerate(zip(logk, logp)):
         for key in a:
-            compare(f"suite records {i} {key}", torch.from_numpy(a[key]),
+            compare(f"{tag} records {i} {key}", torch.from_numpy(a[key]),
                     torch.from_numpy(b[key]))
     if not (np.array_equal(sk.slo.hist, sp.slo.hist)
             and np.array_equal(sk.slo.violations, sp.slo.violations)
             and outk["slo_report"] == outp["slo_report"]
             and outk["records"] == outp["records"] > 0):
-        fail("IoT suite: SLO histograms or report differ")
+        fail(f"IoT {tag}: SLO histograms or report differ")
     for f in sk.stats.store._fields:
-        compare(f"suite window store {f}", getattr(sk.stats.store, f),
+        compare(f"{tag} window store {f}", getattr(sk.stats.store, f),
                 getattr(sp.stats.store, f))
     for k in outk["aggregates"]:
-        compare(f"suite aggregate {k}", torch.from_numpy(outk["aggregates"][k]),
+        compare(f"{tag} aggregate {k}",
+                torch.from_numpy(outk["aggregates"][k]),
                 torch.from_numpy(outp["aggregates"][k]))
     c = sk.engine.counters()
     spooled = sum(int(r["sid"].size) for r in logk)
     rep = outk["slo_report"]["total"]
-    print(f"[suite] {SUITE['n_tenants']} tenants (ETL + STATS), "
+    print(f"[{tag}] {SUITE['n_tenants']} tenants (ETL + STATS), "
           f"{sk.registry.n_active} streams, window store "
           f"{tuple(sk.stats.store.values.shape)} = "
           f"{sk.stats.store.values.numel() * 4 / 1e6} MB: kernels bitwise "
@@ -684,6 +835,234 @@ def phase_suite(torch, dev, counters):
           f"emitted={c['emitted']} dropped_overflow={c['dropped_overflow']}; "
           f"plain run incl. build {build_and_plain} s", flush=True)
     return sk, launches
+
+
+# --------------------------------------------------------------------------
+# phases 8-11: the sharded plane (shards emulated on the one card)
+# --------------------------------------------------------------------------
+
+SHARDS = 4
+
+
+def copy_registry(reg, **cfg):
+    """An independent copy of ``reg`` (same sids, tenants, programs) with
+    config fields replaced: each engine of a churn run needs its own
+    registry, since admission edits the registry too."""
+    from repro_torch.core import Registry
+    snap = reg.to_snapshot()
+    snap["cfg"] = dict(snap["cfg"], **cfg)
+    return Registry.from_snapshot(snap)
+
+
+def table_ptrs(eng):
+    """Storage of every table and of the program table the round reads
+    (cut to the step bound): live churn must move none of them."""
+    ptrs = {f: getattr(eng.tables, f).data_ptr() for f in eng.tables._fields}
+    ptrs["run/progs"] = eng._run_tables.progs.data_ptr()
+    return ptrs
+
+
+def churn(engines, w, rng):
+    """One churn step on every engine alike: admit a composite over two
+    random sources, revoke the one admitted two steps earlier, swap the
+    program of a random composite, and ``rebalance`` the sharded engines
+    (the queues are drained here).  Returns what was done."""
+    regs = [e.registry for e in engines]
+    srcs = [s.sid for s in regs[0].streams if s is not None
+            and not s.composite]
+    comps = [s.sid for s in regs[0].streams if s is not None and s.composite
+             and not s.name.startswith("churn") and s.name != "hot"]
+    picks = rng.choice(srcs, 2, replace=False)
+    swap = int(rng.choice(comps))
+    t = int(rng.integers(len(regs[0].tenants)))
+    out = []
+    for e in engines:
+        r = e.registry
+        s = e.admit_composite(
+            r.tenants[t], f"churn{w}", CHANNELS,
+            [r.streams[int(j)] for j in picks],
+            {ch: f"in0.{ch} * 0.5 + in1.{ch} - {w}.0" for ch in CHANNELS})
+        out.append(None if s is None else s.sid)
+        old = [x for x in r.streams
+               if x is not None and x.name == f"churn{w - 2}"]
+        if old:
+            e.revoke_stream(old[0])
+        e.swap_program(r.streams[swap], {ch: f"in0.{ch} * {w % 5 + 1}.5"
+                                         for ch in CHANNELS})
+    if len(set(out)) != 1:
+        fail(f"churn: engines admitted different sids {out}")
+    done = [f"admit sid {out[0]}", f"swap sid {swap}"]
+    moved = [e.rebalance() for e in engines if hasattr(e, "rebalance")]
+    if len(set(moved)) > 1:
+        fail(f"churn: rebalance moved {moved}")
+    if moved:
+        done.append(f"rebalance {moved[0]}")
+    return done
+
+
+def global_view(eng):
+    """(values, timestamps) by sid, as host arrays, for either layout."""
+    if hasattr(eng, "plan"):
+        return (eng._by_sid(eng.state.values), eng._by_sid(
+            eng.state.timestamps))
+    return eng.state.values.cpu().numpy(), eng.state.timestamps.cpu().numpy()
+
+
+def phase_sharded(torch, dev, reg, sources, path, counters, waves, heavy,
+                  warm):
+    """The sharded round at the smoke cell's width (``EngineConfig``
+    defaults, D = SHARDS, ``exchange_slots=0``: E = W = 1,024 slots, D x E
+    applied items per shard), through the kernels and through their plain
+    versions, with live churn every third wave (admit, revoke, swap,
+    rebalance — table storage unchanged).  ``waves`` waves of two SUs,
+    each drained: every round pops fewer SUs than the batch, so on the
+    fused path a single-device engine run alike must hold the same global
+    values, timestamps and counters.  Then ``heavy`` rounds that each post
+    64 SUs, kernels against plain, the rounds after the first ``warm``
+    timed.  The engine ingests at most ``cfg.batch`` SUs per round across
+    all shards (as the JAX package's sharded engine does), so the shards'
+    pops fill from the composites' emission backlog that the warm-up
+    rounds build; the pops' fill over the timed rounds is printed.  Every
+    launch counter is 0 just before the drive; returns (kernel engine,
+    launches, ms per timed heavy round)."""
+    import numpy as np
+    from repro_torch.core import create_engine
+    kw = dict(n_shards=SHARDS, exchange_slots=0)
+    e_k = create_engine(copy_registry(reg, **kw), device=dev)
+    e_p = plain_engine(copy_registry(reg, **kw), dev)
+    engines = [e_k, e_p]
+    e_1 = None
+    if path == "fused":
+        e_1 = create_engine(copy_registry(reg, exchange_slots=0), device=dev)
+        engines.append(e_1)
+    for e in engines:
+        if e._path != path:
+            fail(f"sharded {path}: the engine took the {e._path} path")
+    ptrs = [table_ptrs(e) for e in (e_k, e_p)]
+    rng = np.random.default_rng(SEED + 11)
+    for c in counters:
+        c.launches = 0
+    rounds, log, max_occ = 0, [], 0
+    for w in range(waves):
+        if w % 3 == 2:
+            log += churn(engines, w, rng)
+        picks = rng.choice(len(sources), 2, replace=False)
+        for j in picks:
+            v = rng.standard_normal(4).tolist()
+            for e in engines:
+                e.post(sources[j], v, 1000 * (w + 1) + int(j) % 7)
+        drained = []
+        for e in engines:
+            sinks = []
+            for _ in range(256):
+                busy = bool(e._pending)
+                sinks.append(e.round())
+                if e is e_1:
+                    max_occ = max(max_occ, int(e.state.q_valid.sum()))
+                if not busy and not bool(e.state.q_valid.any()):
+                    break
+            drained.append(sinks)
+        rounds += len(drained[0])
+        compare_engines(f"sharded {path} wave {w}", e_k, drained[0], e_p,
+                        drained[1])
+        if e_1 is not None:
+            (vk, tk), (v1, t1) = global_view(e_k), global_view(e_1)
+            if not (np.array_equal(vk.view(np.int32), v1.view(np.int32))
+                    and np.array_equal(tk, t1)
+                    and e_k.counters() == e_1.counters()):
+                fail(f"sharded fused wave {w}: the {SHARDS}-shard engine "
+                     f"differs from the single-device engine (max queue "
+                     f"occupancy {max_occ} of batch {reg.cfg.batch})")
+    per_round = reg.cfg.batch
+    popped = []
+    s_k, secs = drive(torch, e_k, sources, heavy, SEED + 12, per_round,
+                      warmup=warm, at_warm=lambda: popped.append(
+                          e_k.counters()["popped"]))
+    s_p, _ = drive(torch, e_p, sources, heavy, SEED + 12, per_round)
+    timed = heavy - warm
+    popped = e_k.counters()["popped"] - popped[0]
+    slots = timed * SHARDS * reg.cfg.batch
+    ms = secs / timed * 1e3
+    rounds += heavy
+    launches = {c.__name__: c.launches for c in counters}
+    compare_engines(f"sharded {path} heavy", e_k, s_k, e_p, s_p)
+    if [table_ptrs(e) for e in (e_k, e_p)] != ptrs:
+        fail(f"sharded {path}: an edit or a round reallocated a table")
+    want = {"sched_pop_call": SHARDS * rounds, "exchange_compact_call": rounds,
+            "apply_programs_call": rounds if path == "fused" else 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"sharded {path}: {name} launched {launches[name]} times "
+                 f"in {rounds} rounds of {SHARDS} shards (want {n})")
+    c = e_k.counters()
+    print(f"[sharded {path}] {SHARDS} shards x {e_k.plan.n_local} rows, "
+          f"E={e_k.cfg.exchange}: {waves} drained waves with churn "
+          f"({'; '.join(log)}) and {heavy} heavy rounds of {per_round} "
+          f"posted SUs (timed rounds {warm + 1}-{heavy}: {popped} popped "
+          f"of {slots} pop slots = {popped / slots} fill), "
+          f"{rounds} rounds in all: kernels bitwise equal to the plain "
+          f"versions (every state leaf, stat and sink); "
+          + (f"{SHARDS}-shard values, timestamps and counters equal to the "
+             f"single-device engine after every wave (max queue occupancy "
+             f"{max_occ} of batch {reg.cfg.batch}); " if e_1 else "")
+          + f"table storage unchanged; launches {launches}; heavy rounds "
+          f"{warm + 1}-{heavy}: {ms} ms/round; processed={c['processed']} "
+          f"emitted={c['emitted']} dropped_overflow={c['dropped_overflow']}",
+          flush=True)
+    return e_k, launches, ms
+
+
+SHARD_SUITE = dict(n_tenants=128, batch=64, queue=2048, window=256,
+                   rounds=16, K=8)
+
+
+def phase_shard_suite(torch, dev, counters):
+    """The IoT suite at D = SHARDS against D = 1, both through the
+    kernels, at 128 tenants: a load every round drains at D = 1, so the
+    sharded engine must give the same latency records, SLO histograms,
+    report, window aggregates and counters."""
+    import numpy as np
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    out = []
+    for D in (1, SHARDS):
+        suite = build_suite(
+            SHARD_SUITE["n_tenants"], kinds=("etl", "stats"),
+            batch=SHARD_SUITE["batch"], queue=SHARD_SUITE["queue"],
+            window=SHARD_SUITE["window"], n_shards=D,
+            trace=TraceConfig(n_devices=SHARD_SUITE["n_tenants"],
+                              rounds=SHARD_SUITE["rounds"], seed=0),
+            cfg_overrides={"superstep": SHARD_SUITE["K"]}, device=dev)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drive(suite, SHARD_SUITE["K"])
+        torch.cuda.synchronize()
+        out.append((suite, res, time.perf_counter() - t0,
+                    {c.__name__: c.launches for c in counters}))
+    (s1, r1, w1, l1), (sD, rD, wD, lD) = out
+    if lD["apply_programs_call"] == 0 or lD["exchange_compact_call"] == 0:
+        fail(f"sharded suite: launches {lD}")
+    if not (np.array_equal(s1.slo.hist, sD.slo.hist)
+            and r1["slo_report"] == rD["slo_report"]
+            and r1["records"] == rD["records"] > 0
+            and s1.engine.counters() == sD.engine.counters()):
+        fail(f"sharded suite: D={SHARDS} differs from D=1 "
+             f"({rD['slo_report']['total']} vs {r1['slo_report']['total']})")
+    n = r1["aggregates"]["sum"].shape[0]    # D > 1 pads the sid space
+    for k in r1["aggregates"]:
+        compare(f"sharded suite aggregate {k}",
+                torch.from_numpy(rD["aggregates"][k][:n]),
+                torch.from_numpy(r1["aggregates"][k]))
+    rep = rD["slo_report"]["total"]
+    n_steps = SHARD_SUITE["rounds"] + 4
+    print(f"[sharded suite] {SHARD_SUITE['n_tenants']} tenants, "
+          f"{sD.registry.n_active} streams: D={SHARDS} equal to D=1 "
+          f"(latency histograms, SLO report, {rD['records']} records, window "
+          f"aggregates, counters); p50/p95/p99 {rep['p50']}/{rep['p95']}/"
+          f"{rep['p99']} rounds; drive() {n_steps} supersteps of "
+          f"K={SHARD_SUITE['K']}: D=1 {w1} s, D={SHARDS} {wD} s; launches "
+          f"D=1 {l1}, D={SHARDS} {lD}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -822,6 +1201,140 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
     return rows_out
 
 
+def record_shard_kernels(torch, eng, sources):
+    """One more heavy round of ``eng`` with the arguments of its
+    ``apply_programs`` and ``exchange_compact`` launches recorded (at
+    their ``plan_*`` stage): the main path's inputs, for timing the
+    kernels alone."""
+    from repro_torch.kernels.round_fuse import kernel as K
+    rec = {}
+    orig = K.plan_apply_programs, K.plan_exchange_compact
+
+    def rec_apply(*a):
+        rec["apply_programs"] = a
+        return orig[0](*a)
+
+    def rec_exchange(*a):
+        rec["exchange_compact"] = a
+        return orig[1](*a)
+
+    K.plan_apply_programs, K.plan_exchange_compact = rec_apply, rec_exchange
+    try:
+        drive(torch, eng, sources, 1, SEED + 13, eng.cfg.batch)
+    finally:
+        K.plan_apply_programs, K.plan_exchange_compact = orig
+    if len(rec) != 2:
+        fail(f"the sharded round did not reach both kernels: {list(rec)}")
+    return rec
+
+
+def apply_cost(torch, args):
+    """Bytes and operations the sharded apply needs on these inputs, as
+    ``fused_round_bytes`` reckons them, with the two row spaces apart:
+    per shard, for every distinct table row an item lands on its in_table
+    row, flags, program up to its last non-NOP instruction and the
+    constants its CONST instructions read; once for all shards, the value
+    and timestamp of every distinct snapshot row read (targets and
+    fetched co-inputs; the trigger slot comes with the item); every item's
+    inputs and outputs once.  Operations: the VM instructions each item
+    runs (its row's non-NOP instructions)."""
+    from repro_torch.core.program import OP_CONST
+    (_layout, in_table, progs, consts, _comp, _act, rows, t_sid, wi_src,
+     wi_vals, _ts, _valid, values, _tstamp) = args
+    S, W = rows.shape
+    M, L, K, C = in_table.shape[-1], progs.shape[-2], consts.shape[-1], \
+        wi_vals.shape[-1]
+    n_snap = values.shape[0]
+    dev = rows.device
+    n = S * W * (4 + 4 + 1 + 4 + 4 + 4 * C) + S * W * (4 * C + 4 + 5)
+    steps = torch.arange(1, L + 1, device=dev)
+    snap, ops = [], 0
+    for s in range(S):
+        r = rows[s].long()
+        u = r.unique()
+        n += u.numel() * (M * 4 + 2)
+        pr = progs[s][u]
+        l_eff = torch.where(pr[..., 0] != 0, steps, 0).max(dim=1).values
+        n += 16 * int(l_eff.sum())
+        a = pr[..., 2]
+        a = torch.clamp(torch.where(a < 0, a + K, a), 0, K - 1)
+        const = (pr[..., 0] == OP_CONST) & (steps[None, :] <= l_eff[:, None])
+        n += 4 * (u[:, None] * K + a)[const].unique().numel()
+        ops += int((progs[s][r][..., 0] != 0).sum())
+        in_rows = in_table[s][r]
+        hit = (in_rows >= 0) & (in_rows == wi_src[s][:, None])
+        trig = torch.where(hit.any(dim=1), hit.int().argmax(dim=1), 0)
+        fetch = (in_rows >= 0) & (
+            torch.arange(M, device=dev)[None, :] != trig[:, None])
+        snap += [t_sid[s].long(),
+                 torch.clamp(in_rows[fetch], 0, n_snap - 1).long()]
+    n += torch.cat(snap).unique().numel() * (4 * C + 4)
+    return n, ops
+
+
+def time_shard_kernels(torch, eng, sources, errs, launches):
+    """``exchange_compact`` and ``apply_programs`` at the sharded main
+    path's shapes and data (recorded from one round of the kernel
+    engine), timed alone beside their plain versions and bounds."""
+    from repro_torch.kernels.round_fuse.kernel import (plan_apply_programs,
+                                                       plan_exchange_compact)
+    from repro_torch.kernels.round_fuse.ops import (apply_programs,
+                                                    exchange_compact)
+    rec = record_shard_kernels(torch, eng, sources)
+    rows = []
+    xa = rec["exchange_compact"]
+    D, E = xa[6], xa[7]
+    S, W = xa[0].shape
+    C = xa[4].shape[-1]
+    x_bytes = S * W * (5 * 4 + 4 * C + 1) + S * D * E * (4 + C) * 4
+    x_bound, x_by = bound_ms(x_bytes, 0, 0.0)
+    launch, _ = plan_exchange_compact(*xa)
+    ms, host = time_launches([launch], 200)
+    prof = profile_kernels([launch], ["exchange_compact_kernel"])
+    plain = time_ms(lambda: exchange_compact(*xa, use_kernel=False), reps=5)
+    routed = int((xa[5] < D).sum())
+    rows.append(dict(
+        name="exchange_compact", route="cuda",
+        source="src/repro_torch/kernels/round_fuse/csrc/exchange_compact.cu",
+        replaces="src/repro/kernels/round_fuse/kernel.py:549",
+        launches=launches["exchange_compact_call"],
+        max_abs_err=errs["exchange_compact"], ms=ms, plain_ms=plain,
+        bound_ms=x_bound, bound_by=x_by, library_ms=None))
+    print(f"[timing] exchange_compact at ({S} senders, W={W}, {D} x {E} "
+          f"slots, C={C}), {routed} routed items: kernel {ms} ms (CUDA "
+          f"events over 200 back-to-back launches; host enqueue {host} ms "
+          f"per launch), profiler {prof['exchange_compact_kernel']} ms; "
+          f"plain {plain} ms; bound {x_bound} ms ({x_by}; {x_bytes} bytes: "
+          f"W x (5 int32 + C f32 + drop byte) in and out, D x E x (4 + C) "
+          f"x 4 B of buckets out, per sender); no single PyTorch call ranks "
+          f"items per destination and scatters them, so no library time",
+          flush=True)
+    aa = rec["apply_programs"]
+    a_bytes, a_ops = apply_cost(torch, aa)
+    a_bound, a_by = bound_ms(a_bytes, a_ops, 0.0)
+    launch, _ = plan_apply_programs(*aa)
+    ms, host = time_launches([launch], 200)
+    prof = profile_kernels([launch], ["apply_programs_kernel"])
+    plain = time_ms(lambda: apply_programs(*aa, use_kernel=False), reps=3)
+    S, W = aa[6].shape
+    rows.append(dict(
+        name="apply_programs", route="cuda",
+        source="src/repro_torch/kernels/round_fuse/csrc/fused_round.cu",
+        replaces="src/repro/kernels/round_fuse/kernel.py:463",
+        launches=launches["apply_programs_call"],
+        max_abs_err=errs["apply_programs"], ms=ms, plain_ms=plain,
+        bound_ms=a_bound, bound_by=a_by, library_ms=None))
+    print(f"[timing] apply_programs at ({S} shards x {W} items, "
+          f"{aa[1].shape[1]} table rows, {aa[12].shape[0]} snapshot rows), "
+          f"{int(aa[11].sum())} valid items: kernel {ms} ms (CUDA events "
+          f"over 200 back-to-back launches; host enqueue {host} ms per "
+          f"launch), profiler {prof['apply_programs_kernel']} ms; plain "
+          f"{plain} ms; bound {a_bound} ms ({a_by}; {a_bytes} bytes, {a_ops} "
+          f"VM instructions); no single PyTorch call runs the bytecode VM, "
+          f"so no library time", flush=True)
+    return rows
+
+
 def window_agg_cost(count, N: int, C: int):
     """Bytes and operations the window aggregates need: each valid entry
     read once (the kernel loads no entry past a stream's count), the
@@ -910,7 +1423,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import EngineConfig
     from repro_torch.kernels import _build
-    from repro_torch.kernels.round_fuse.kernel import fused_round_call
+    from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
+                                                       exchange_compact_call,
+                                                       fused_round_call)
     from repro_torch.kernels.sched_pop.kernel import sched_pop_call
     from repro_torch.kernels.window_agg.kernel import window_agg_call
 
@@ -938,6 +1453,7 @@ def main() -> None:
     # ---- 2. kernels against their plain versions -----------------------
     cfg = EngineConfig(n_streams=4096).validate()
     errs = phase_kernels(torch, dev, cfg)
+    errs.update(phase_shard_kernels(torch, dev, cfg, SHARDS))
 
     # ---- 3. fused main path at full width ------------------------------
     import numpy as np
@@ -946,33 +1462,56 @@ def main() -> None:
     reg, sources = build_registry(cfg, rng)
     print(f"[registry] {reg.n_active} streams ({len(sources)} sources) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    counters = (fused_round_call, sched_pop_call, window_agg_call)
-    eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 64,
+    reg_fused = copy_registry(reg)          # before phase 5 adds tanh
+    counters = (fused_round_call, sched_pop_call, window_agg_call,
+                apply_programs_call, exchange_compact_call)
+    eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 48,
                                      8, fused_round_call, counters)
 
     # ---- 4. fused supersteps against eager rounds ----------------------
-    phase_superstep(torch, dev, reg, sources, "fused", 8, 8,
+    phase_superstep(torch, dev, reg, sources, "fused", 8, 6,
                     fused_round_call, counters)
 
     # ---- 5. staged main path: one tanh composite flips it --------------
     reg.create_composite(reg.tenants[0], "hot", CHANNELS, sources[:2],
                          {ch: f"tanh(in0.{ch}) + in1.{ch}" for ch in CHANNELS})
-    _, sp_launches, _ = phase_path(torch, dev, reg, sources, "staged", 24,
+    _, sp_launches, _ = phase_path(torch, dev, reg, sources, "staged", 16,
                                    4, sched_pop_call, counters)
 
     # ---- 6. staged supersteps against eager rounds ---------------------
-    phase_superstep(torch, dev, reg, sources, "staged", 8, 3,
+    phase_superstep(torch, dev, reg, sources, "staged", 8, 2,
                     sched_pop_call, counters)
 
     # ---- 7. the IoT suite at full width, kernels against plain ---------
     suite, suite_launches = phase_suite(torch, dev, counters)
 
-    # ---- 8. timings ------------------------------------------------------
+    # ---- 8. sharded fused round, churned, kernels against plain and the
+    #         single-device engine --------------------------------------
+    e_sh, sh_launches, _ = phase_sharded(torch, dev, reg_fused, sources,
+                                         "fused", counters, waves=6,
+                                         heavy=24, warm=8)
+
+    # ---- 9. sharded fused supersteps against eager sharded rounds ------
+    phase_superstep(torch, dev, copy_registry(reg_fused, n_shards=SHARDS,
+                                              exchange_slots=0),
+                    sources, "fused", 8, 3, apply_programs_call, counters)
+
+    # ---- 10. sharded staged round, churned, kernels against plain ------
+    phase_sharded(torch, dev, reg, sources, "staged", counters, waves=3,
+                  heavy=16, warm=8)
+
+    # ---- 11. the IoT suite at D = SHARDS against D = 1, and at full
+    #          width on D = SHARDS, kernels against plain ----------------
+    phase_shard_suite(torch, dev, counters)
+    phase_suite(torch, dev, counters, n_shards=SHARDS)
+
+    # ---- 12. timings -----------------------------------------------------
     rows = phase_timings(torch, eng, errs, {"sched_pop": sp_launches,
                                             "fused_round": fr_launches},
                          dep_cycles, clock_hz)
     rows.append(time_window_agg(torch, suite, errs,
                                 suite_launches["window_agg_call"]))
+    rows += time_shard_kernels(torch, e_sh, sources, errs, sh_launches)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -8,11 +8,12 @@ ms per round, device busy ms per round (the sum of the CUDA kernels' and
 copies' own device time — one stream, so they do not overlap), the
 device's idle share, CUDA launches per round, and the kernels that take
 the most device time.  ``--superstep K`` runs the same rounds as
-supersteps of K (posts at each boundary, one spool readback each).
-Needs one CUDA device; fails without one.
+supersteps of K (posts at each boundary, one spool readback each);
+``--shards D`` runs the sharded engine (D shards emulated on the card,
+``exchange_slots=0``).  Needs one CUDA device; fails without one.
 
     python3 scripts/profile_torch_round.py [--path fused|staged] \
-        [--rounds 16] [--superstep K]
+        [--rounds 16] [--superstep K] [--shards D]
 """
 from __future__ import annotations
 
@@ -100,6 +101,8 @@ def main() -> None:
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--superstep", type=int, default=0,
                     help="run the rounds as supersteps of this K")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shards of the sharded engine (1: single device)")
     args = ap.parse_args()
     if args.superstep and (args.rounds % args.superstep
                            or args.warmup % args.superstep):
@@ -114,7 +117,8 @@ def main() -> None:
     import chip_smoke as cs
     from repro_torch.core import EngineConfig, create_engine
 
-    cfg = EngineConfig(n_streams=4096).validate()
+    cfg = EngineConfig(n_streams=4096, n_shards=args.shards,
+                       exchange_slots=0).validate()
     reg, sources = cs.build_registry(cfg, np.random.default_rng(cs.SEED))
     if args.path == "staged":
         reg.create_composite(reg.tenants[0], "hot", cs.CHANNELS, sources[:2],
@@ -125,6 +129,7 @@ def main() -> None:
         sys.exit(f"profile_torch_round: engine took the {eng._path} path")
     out = profile_round(torch, cs, eng, sources, args.rounds, args.warmup,
                         args.superstep)
+    out["shards"] = args.shards
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core import consistency, program as pvm
 from repro_torch.core.config import EngineConfig
-from repro_torch.core.registry import EngineTables, Registry
+from repro_torch.core.registry import CapacityError, EngineTables, Registry
 from repro_torch.kernels.round_fuse import ref as rf_ref
 
 INT_MIN = int(np.iinfo(np.int32).min) + 1
@@ -943,16 +943,27 @@ def scan_rounds(round_fn: Callable, state: EngineState, ring: IngestRing,
     spool = _init_spool(P, C, ring.sid.device)
     for k in range(K):
         state, sink = round_fn(state, IngestBatch(*(g[k] for g in grid)))
-        spool, over = spool_append(spool, sink, k)
-        stats = dict(state.stats)
-        _inc(stats, "dropped_spool", _count(over))
-        state = state._replace(stats=stats)
-        s_ten = None if tenant_by_sid is None else _take(
-            tenant_by_sid, torch.clamp(sink.sid, 0,
-                                       tenant_by_sid.shape[0] - 1))
-        state = dlq_append(state, sink.sid, sink.vals, sink.ts, s_ten,
-                           DLQ_SPOOL, over, its=sink.its)
+        state, spool = spool_round(state, spool, sink, k, tenant_by_sid)
     return state, spool, ring._replace(valid=ring.valid & (ring.rnd >= K))
+
+
+def spool_round(state: EngineState, spool: SinkSpool, sink: SinkBatch, k: int,
+                tenant_by_sid: Optional[torch.Tensor] = None
+                ) -> Tuple[EngineState, SinkSpool]:
+    """A superstep's bookkeeping after round ``k``: append the round's
+    sink to the spool; entries past its capacity are counted in
+    ``dropped_spool`` and dead-lettered (charged through
+    ``tenant_by_sid``).  Shared by :func:`scan_rounds` and the sharded
+    superstep (once per shard)."""
+    spool, over = spool_append(spool, sink, k)
+    stats = dict(state.stats)
+    _inc(stats, "dropped_spool", _count(over))
+    state = state._replace(stats=stats)
+    s_ten = None if tenant_by_sid is None else _take(
+        tenant_by_sid, torch.clamp(sink.sid, 0, tenant_by_sid.shape[0] - 1))
+    state = dlq_append(state, sink.sid, sink.vals, sink.ts, s_ten,
+                       DLQ_SPOOL, over, its=sink.its)
+    return state, spool
 
 
 def make_superstep(cfg: EngineConfig, K: int, fused: Optional[bool] = None,
@@ -999,24 +1010,21 @@ class StreamEngine:
     ``device`` (CUDA by default): the kernels launch for CUDA tensors,
     their plain versions run on the CPU.  ``use_kernel=False`` runs the
     plain versions on the card too (what ``chip_smoke.py`` holds the
-    kernels against).  Single device only: ``cfg.n_shards > 1`` raises."""
+    kernels against).  The sharded engine
+    (:class:`~repro_torch.distributed.stream_sharding.ShardedStreamEngine`,
+    from :func:`create_engine` when ``cfg.n_shards > 1``) overrides the
+    layout hooks."""
 
     def __init__(self, registry: Registry, *, device="cuda",
                  priority: Optional[np.ndarray] = None,
                  use_kernel: Optional[bool] = None):
-        if registry.cfg.n_shards > 1:
-            raise NotImplementedError(
-                "cfg.n_shards > 1: the sharded engine is not ported yet "
-                "(ROADMAP.md, queue 1, item 9)")
         self.device = resolve_device(device)
         self.cfg = registry.cfg
         self.registry = registry
         self.use_kernel = use_kernel
-        self.tables = DeviceTables.from_host(registry.build_tables(priority),
-                                             self.device)
-        self.state = init_state(self.cfg, self.device)
         # per path: (round closure, {K: superstep closure})
         self._fns: Dict[str, Tuple[Callable, Dict[int, Callable]]] = {}
+        self._init_layout(priority)
         self._pending: List[List] = []  # [sid, vals, ts, ring_slot|None, its]
         self.admission_rejected = 0
         # latency plane: the global round counter stamps each post()ed SU;
@@ -1029,6 +1037,13 @@ class StreamEngine:
         self._ring_K = 0
         self._ring_free: List[int] = []
         self._refresh_fusable()
+
+    def _init_layout(self, priority: Optional[np.ndarray]) -> None:
+        """Lower the registry into device tables and a fresh state (the
+        sharded engine adds its plan, lookup maps and slot books)."""
+        self.tables = DeviceTables.from_host(
+            self.registry.build_tables(priority), self.device)
+        self.state = init_state(self.cfg, self.device)
 
     # -------------------------------------------------------------- ingest
     def post(self, stream, values: Sequence[float], ts: int,
@@ -1059,8 +1074,10 @@ class StreamEngine:
                 rest.append(item)
         return take, rest
 
-    def _take_ingest(self) -> IngestBatch:
-        """This round's ingest batch on the engine's device."""
+    def _take_host(self) -> Tuple[np.ndarray, ...]:
+        """This round's ingest selection as host arrays ``(sid, vals, ts,
+        valid, its)`` padded to ``cfg.batch``; staged ring slots of the
+        taken SUs are released."""
         B, C = self.cfg.batch, self.cfg.channels
         sid = np.zeros((B,), np.int32)
         vals = np.zeros((B, C), np.float32)
@@ -1071,9 +1088,18 @@ class StreamEngine:
         for i, (s, v, t, slot, stamp) in enumerate(take):
             sid[i], vals[i], ts[i], valid[i], its[i] = s, v, t, True, stamp
             if slot is not None:        # consumed by a round: its staged
-                self._ring_free.append(slot)    # ring slot is free again
+                self._release_ring_slot(slot)   # ring slot is free again
+        return sid, vals, ts, valid, its
+
+    def _take_ingest(self) -> IngestBatch:
+        """This round's ingest batch on the engine's device."""
         return IngestBatch(*(_tensor(a, self.device)
-                             for a in (sid, vals, ts, valid, its)))
+                             for a in self._take_host()))
+
+    def _release_ring_slot(self, slot) -> None:
+        """Hook: return a staged ingest-ring slot to the free pool (the
+        sharded engine keys its pools by shard)."""
+        self._ring_free.append(slot)
 
     # --------------------------------------------------------------- rounds
     def round(self) -> SinkBatch:
@@ -1206,9 +1232,8 @@ class StreamEngine:
         """The current path's K-round closure (built once per (path, K))."""
         fn = self._supersteps.get(K)
         if fn is None:
-            fn = self._supersteps[K] = make_superstep(
-                self.cfg, K, fused=self._path == "fused",
-                use_kernel=self.use_kernel)
+            fn = self._supersteps[K] = self._make_superstep(
+                K, self._path == "fused")
         return fn
 
     def spool_sinks(self, spool: SinkSpool,
@@ -1296,10 +1321,17 @@ class StreamEngine:
         self._path = path = self._round_path()
         fns = self._fns.get(path)
         if fns is None:
-            fns = self._fns[path] = (
-                make_step(self.cfg, fused=path == "fused",
-                          use_kernel=self.use_kernel), {})
+            fns = self._fns[path] = (self._make_step(path == "fused"), {})
         self._step, self._supersteps = fns
+
+    def _make_step(self, fused: bool) -> Callable:
+        """The round closure of one path (the sharded engine overrides
+        this and :meth:`_make_superstep`)."""
+        return make_step(self.cfg, fused=fused, use_kernel=self.use_kernel)
+
+    def _make_superstep(self, K: int, fused: bool) -> Callable:
+        return make_superstep(self.cfg, K, fused=fused,
+                              use_kernel=self.use_kernel)
 
     def _refresh_fusable(self) -> None:
         """Recompute from the program table the per-row fusability bitmap
@@ -1311,17 +1343,45 @@ class StreamEngine:
         self._fusable_rows = rf_ref.fusable_rows(progs)
         self._cut_programs(progs)
 
-    def _note_program(self, row: int, prog: Optional[np.ndarray]) -> None:
+    def _note_program(self, row, prog: Optional[np.ndarray]) -> None:
         """Single-row update after a program edit of ``tables.progs``
-        (``prog=None``: the row is the all-NOP program)."""
+        (``row`` an index tuple or a sid; ``prog=None``: the row is the
+        all-NOP program)."""
         self._fusable_rows[row] = rf_ref.fusable_program(prog)
         self._cut_programs(self.tables.progs.cpu().numpy())
 
     def _cut_programs(self, progs: np.ndarray) -> None:
-        self._run_tables = self.tables._replace(
-            progs=self.tables.progs[:, :pvm.program_steps(progs)]
-            .contiguous())
+        """Rewrite the round's program table, ``tables.progs`` cut to the
+        step bound, in place.  The cut lives in one buffer of the full
+        table's size, so its storage never moves (a re-lower to another
+        shard shape excepted).  The bound only grows, since a NOP tail is
+        the identity: its shape changes only when an edit needs more
+        steps than any program before it, and then ``_sync_admitted``
+        runs."""
+        full = self.tables.progs
+        buf = getattr(self, "_prog_buf", None)
+        steps = pvm.program_steps(progs)
+        old = None
+        if buf is None or buf.numel() != full.numel() \
+                or buf.device != full.device:
+            buf = self._prog_buf = torch.empty(
+                full.numel(), dtype=full.dtype, device=full.device)
+        else:
+            old = self._run_tables.progs
+            steps = max(steps, old.shape[-2])
+        shape = tuple(full.shape[:-2]) + (steps, full.shape[-1])
+        cut = buf[:int(np.prod(shape))].view(shape)
+        cut.copy_(full[..., :steps, :])
+        self._run_tables = self.tables._replace(progs=cut)
+        if old is None or old.shape != cut.shape:
+            self._sync_admitted()
         self._select_path()
+
+    def _sync_admitted(self) -> None:
+        """Hook: the round's program table changed shape or storage (see
+        :meth:`_cut_programs`).  Every other edit is in place, so this is
+        the one point where a captured round would be captured again;
+        nothing is captured yet."""
 
     # ----------------------------------------------------- tenant QoS plane
     @staticmethod
@@ -1331,8 +1391,8 @@ class StreamEngine:
     def set_weight(self, tenant, weight: int) -> None:
         """Set a tenant's fair-share weight live (in place), clipped to
         ``[0, FAIR_SCALE]``; 0 exempts the tenant from shaping."""
-        self.tables.weight[self._tid(tenant)] = \
-            int(np.clip(weight, 0, FAIR_SCALE))
+        from repro_torch.core import admission
+        admission.set_weight(self.tables, self._tid(tenant), weight)
 
     def set_quota(self, tenant, quota: int,
                   burst: Optional[int] = None) -> None:
@@ -1340,12 +1400,9 @@ class StreamEngine:
         refilled by ``quota`` per round up to ``burst`` (default
         ``quota``), both clipped to ``[0, QUOTA_MAX]``; the current bucket
         is clamped to the new burst.  ``quota=0`` removes the cap."""
-        tid = self._tid(tenant)
-        b = quota if burst is None else burst
-        self.tables.quota[tid] = int(np.clip(quota, 0, QUOTA_MAX))
-        self.tables.burst[tid] = int(np.clip(b, 0, QUOTA_MAX))
-        torch.minimum(self.state.tokens, self.tables.burst,
-                      out=self.state.tokens)
+        from repro_torch.core import admission
+        admission.set_quota(self.tables, self.state, self._tid(tenant),
+                            quota, quota if burst is None else burst)
 
     def set_breaker(self, window: Optional[int] = None,
                     threshold: Optional[int] = None,
@@ -1354,12 +1411,203 @@ class StreamEngine:
         within a ``window``-round span quarantine a stream; 0 disarms
         tripping (faults still count), ``amp_ceiling=0`` disarms the
         amplification class.  Omitted knobs keep their values."""
-        cur = self.tables.breaker.cpu().numpy()
+        from repro_torch.core import admission
+        cur = self.tables.breaker.cpu().numpy().reshape(-1, 3)[0]
         w = int(cur[0]) if window is None else int(window)
         f = int(cur[1]) if threshold is None else int(threshold)
         c = int(cur[2]) if amp_ceiling is None else int(amp_ceiling)
         assert w >= 1 and f >= 0 and c >= 0
-        self.tables.breaker.copy_(torch.tensor([w, f, c], dtype=I32))
+        admission.set_breaker(self.tables, [w, f, c])
+
+    # ------------------------------------------------- dynamic admission
+    # Live topology churn: every method below edits the running engine's
+    # tables and state in place through :mod:`repro_torch.core.admission`;
+    # no round closure is rebuilt.  Capacity rejections return None/False
+    # and count in ``admission_rejected``.
+
+    def _table_row(self, sid: int) -> Tuple:
+        """Index tuple of stream ``sid``'s row in the device tables; the
+        sharded engine addresses ``(shard, local)``."""
+        return (int(sid),)
+
+    def _place_sid(self, sid: int, tid: int, priority: int) -> None:
+        """Hook: the sharded engine routes a newly admitted sid to a shard
+        here."""
+
+    def _released_sid(self, sid: int) -> None:
+        """Hook: the sharded engine frees the sid's shard slot here."""
+
+    def admit_stream(self, tenant, name: str, channels: Sequence[str],
+                     *, priority: int = 0, service_object=None):
+        """Admit a new simple (device-fed) stream on the running engine.
+        Returns the Stream, or ``None`` when capacity is exhausted (the
+        rejection is counted)."""
+        try:
+            s = self.registry.create_stream(tenant, name, channels,
+                                            service_object=service_object)
+        except CapacityError:
+            self.admission_rejected += 1
+            return None
+        self._place_sid(s.sid, tenant.tid, priority)
+        self._admit_row(s, priority)
+        return s
+
+    def admit_composite(self, tenant, name: str, channels: Sequence[str],
+                        inputs: Sequence, transform: Optional[Dict[str, str]]
+                        = None, *, pre_filter: Optional[str] = None,
+                        post_filter: Optional[str] = None, priority: int = 0,
+                        service_object=None, model_backed: bool = False):
+        """Admit a composite stream (Service Object + subscriptions) live.
+        Returns the Stream, or ``None`` on any capacity rejection."""
+        try:
+            s = self.registry.create_composite(
+                tenant, name, channels, inputs, transform or {},
+                pre_filter=pre_filter, post_filter=post_filter,
+                service_object=service_object, model_backed=model_backed)
+        except CapacityError:
+            self.admission_rejected += 1
+            return None
+        self._place_sid(s.sid, tenant.tid, priority)
+        self._admit_row(s, priority)
+        return s
+
+    def _admit_row(self, s, priority: int) -> None:
+        from repro_torch.core import admission
+        try:
+            if s.composite:
+                prog, consts = self.registry._compile_stream(s)
+            else:
+                prog, consts = pvm.empty_program(self.cfg.prog_len,
+                                                 self.cfg.n_consts)
+        except Exception:
+            # bad user code must not leave a half-admitted stream behind
+            self.registry.remove_stream(s.sid)
+            self._released_sid(s.sid)
+            raise
+        row = self._table_row(s.sid)
+        admission.admit_stream(self.tables, self.state, row, s.tenant,
+                               len(s.channels), s.composite, s.model_backed,
+                               priority, prog, consts)
+        for src_sid in s.inputs:      # same append order as build_tables
+            self._admit_edge(s.sid, src_sid)
+        self._note_program(row, prog)
+
+    def revoke_stream(self, stream) -> None:
+        """Revoke a stream live: its row is cleared, every subscription
+        referencing it is severed, queued SUs are purged into
+        ``dropped_revoked`` (and the DLQ), and the sid is recycled by the
+        next admission."""
+        from repro_torch.core import admission
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        self.registry.remove_stream(sid)
+        row = self._table_row(sid)
+        admission.revoke_stream(self.tables, self.state, row, sid)
+        self._released_sid(sid)
+        self._note_program(row, None)           # the row is NOPs now
+
+    def admit_subscription(self, stream, new_input, *,
+                           replay: bool = False) -> bool:
+        """Add a subscription edge to a running composite.  Returns False
+        (counted) when in/out-degree capacity is exhausted.  ``replay``
+        (history from the retention ring) belongs to the durability
+        plane, not ported yet."""
+        if replay:
+            raise NotImplementedError(
+                "admit_subscription(replay=True) replays retained history, "
+                "which is the durability plane (ROADMAP.md, queue 1, item 7)")
+        try:
+            self.registry.subscribe(stream, new_input)
+        except CapacityError:
+            self.admission_rejected += 1
+            return False
+        self._admit_edge(stream.sid, new_input.sid)
+        return True
+
+    def revoke_subscription(self, stream, old_input) -> None:
+        """Remove one subscription edge from a running composite."""
+        from repro_torch.core import admission
+        self.registry.unsubscribe(stream, old_input)
+        admission.revoke_subscription(
+            self.tables, self._table_row(stream.sid),
+            self._table_row(old_input.sid), stream.sid, old_input.sid)
+
+    def _admit_edge(self, target_sid: int, src_sid: int) -> None:
+        from repro_torch.core import admission
+        if not admission.admit_subscription(
+                self.tables, self._table_row(target_sid),
+                self._table_row(src_sid), target_sid, src_sid):
+            # the registry pre-checked capacity and liveness, so a device
+            # rejection means the host mirror and tables diverged
+            raise RuntimeError(
+                f"device tables rejected edge {src_sid}->{target_sid} the "
+                "registry accepted (host/device mismatch)")
+
+    def swap_program(self, stream, transform: Dict[str, str],
+                     pre_filter: Optional[str] = None,
+                     post_filter: Optional[str] = None) -> None:
+        """Replace a composite stream's user code live — the tables are
+        data, the round closure is untouched (paper §IV-F)."""
+        from repro_torch.core import admission
+        s = self.registry.stream_of(
+            stream.sid if hasattr(stream, "sid") else int(stream))
+        if not s.composite:
+            raise ValueError("only composite streams carry user code")
+        s.transform = dict(transform)
+        s.pre_filter = pre_filter
+        s.post_filter = post_filter
+        prog, consts = self.registry._compile_stream(s)
+        row = self._table_row(s.sid)
+        admission.swap_program(self.tables, row, prog, consts)
+        self._note_program(row, prog)
+
+    def inject_code(self, stream, transform: Dict[str, str],
+                    pre_filter: Optional[str] = None,
+                    post_filter: Optional[str] = None) -> None:
+        """Alias of :meth:`swap_program` (its pre-admission-plane name)."""
+        self.swap_program(stream, transform, pre_filter, post_filter)
+
+    def rewire(self) -> None:
+        """Re-lower the registry into the existing tables after
+        ``Registry.subscribe``/new streams (same shapes, written in
+        place).  The per-tenant QoS tables and the breaker knobs are kept:
+        the registry does not mirror them."""
+        prio = self.tables.priority.cpu().numpy()
+        host = self.registry.build_tables(prio)
+        for f in DeviceTables._fields:
+            if f not in ("weight", "quota", "burst", "breaker"):
+                getattr(self.tables, f).copy_(_tensor(getattr(host, f),
+                                                      "cpu"))
+        self._refresh_fusable()
+
+    # ------------------------------------------------- fault-isolation plane
+    def quarantine(self, stream) -> None:
+        """Quarantine a stream by hand (the breaker's trip action, host
+        triggered): its queued SUs purge to the DLQ as ``poisoned`` and the
+        ingest/pop gates shed everything addressed to it until
+        :meth:`unquarantine`.  The row keeps its registration, program and
+        subscriptions.  Idempotent."""
+        from repro_torch.core import admission
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        admission.quarantine_stream(self.tables, self.state,
+                                    self._table_row(sid), sid)
+
+    def unquarantine(self, stream) -> None:
+        """Lift a stream's quarantine and reset its breaker window
+        (``fault_total`` survives)."""
+        from repro_torch.core import admission
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        admission.unquarantine_stream(self.state, self._table_row(sid))
+
+    def is_quarantined(self, stream) -> bool:
+        """Whether ``stream``'s row is currently quarantined."""
+        sid = stream.sid if hasattr(stream, "sid") else int(stream)
+        return bool(self.state.quarantined[self._table_row(sid)])
+
+    def redeliver(self, letters=None) -> int:
+        """Resubmit dead letters: the durability plane, not ported yet."""
+        raise NotImplementedError(
+            "redeliver() belongs to the durability plane (ROADMAP.md, "
+            "queue 1, item 7)")
 
     # ------------------------------------------------------------- readback
     def value_of(self, stream) -> np.ndarray:
@@ -1373,48 +1621,62 @@ class StreamEngine:
         return int(self.state.timestamps[sid])
 
     def counters(self) -> Dict[str, int]:
-        """The scalar stat counters as a host dict (keys: STAT_KEYS)."""
-        return {k: int(v) for k, v in self.state.stats.items()}
+        """The scalar stat counters as a host dict (keys: STAT_KEYS),
+        summed over shards on the host by the sharded engine."""
+        return {k: int(v.cpu().numpy().sum()) for k, v in
+                self.state.stats.items()}
 
     def tenant_counters(self) -> Dict[str, np.ndarray]:
-        """Per-tenant counters as host arrays: ``emitted``, ``queued``,
-        ``dropped_quota`` and ``dropped_overflow``."""
-        return {key: getattr(self.state, field).cpu().numpy()
-                for key, field in (("emitted", "tenant_emitted"),
-                                   ("queued", "tenant_queued"),
-                                   ("dropped_quota", "tenant_dropped_quota"),
-                                   ("dropped_overflow",
-                                    "tenant_dropped_overflow"))}
+        """Per-tenant counters as host arrays (summed over shards):
+        ``emitted``, ``queued``, ``dropped_quota`` and
+        ``dropped_overflow``."""
+        out = {}
+        for key, field in (("emitted", "tenant_emitted"),
+                           ("queued", "tenant_queued"),
+                           ("dropped_quota", "tenant_dropped_quota"),
+                           ("dropped_overflow", "tenant_dropped_overflow")):
+            a = getattr(self.state, field).cpu().numpy()
+            out[key] = a.sum(axis=0) if a.ndim == 2 else a
+        return out
 
     def tenant_backlog(self, tenant=None):
-        """Per-tenant queue occupancy after the last round: the int for
-        one ``tenant``, or the ``(n_tenants,)`` array."""
-        occ = self.state.tenant_queued.cpu().numpy()
+        """Per-tenant queue occupancy after the last round (summed over
+        shards): the int for one ``tenant``, or the ``(n_tenants,)``
+        array."""
+        occ = self.tenant_counters()["queued"]
         return occ if tenant is None else int(occ[self._tid(tenant)])
 
     def fault_counters(self) -> Dict[str, np.ndarray]:
         """Per-stream fault counters as by-sid host arrays:
         ``quarantined``, ``fault_count`` and ``fault_total``."""
-        return {f: getattr(self.state, f).cpu().numpy()
+        return {f: self._by_sid(getattr(self.state, f))
                 for f in ("quarantined", "fault_count", "fault_total")}
+
+    def _by_sid(self, x: torch.Tensor) -> np.ndarray:
+        """A per-row state leaf as a host array in sid order (the sharded
+        engine gathers it through its placement)."""
+        return x.cpu().numpy()
 
     def dead_letters(self, clear: bool = True) -> List[DeadLetter]:
         """Drain the dead-letter spool: every SU dropped into a
-        ``dropped_*`` counter since the last drain, in drop order;
-        ``clear`` resets the spool cursor."""
+        ``dropped_*`` counter since the last drain, in drop order
+        (shard-major on the sharded engine); ``clear`` resets the spool
+        cursor (in place)."""
         st = self.state
-        if st.dlq_sid.shape[0] == 0:
+        if st.dlq_sid.shape[-1] == 0:
             return []
-        sid, vals, ts, its, reason, tenant = (
-            getattr(st, f).cpu().numpy() for f in (
-                "dlq_sid", "dlq_vals", "dlq_ts", "dlq_its", "dlq_reason",
-                "dlq_tenant"))
-        letters = [DeadLetter(int(sid[i]), np.array(vals[i]), int(ts[i]),
-                              DLQ_REASONS[int(reason[i])], int(tenant[i]),
-                              int(its[i]))
-                   for i in range(int(st.dlq_fill))]
+        one = st.dlq_fill.dim() == 0        # single device: no shard axis
+        sid, vals, ts, its, reason, tenant, fill = (
+            getattr(st, f).cpu().numpy()[None] if one
+            else getattr(st, f).cpu().numpy()
+            for f in ("dlq_sid", "dlq_vals", "dlq_ts", "dlq_its",
+                      "dlq_reason", "dlq_tenant", "dlq_fill"))
+        letters = [DeadLetter(int(sid[s, i]), np.array(vals[s, i]),
+                              int(ts[s, i]), DLQ_REASONS[int(reason[s, i])],
+                              int(tenant[s, i]), int(its[s, i]))
+                   for s in range(fill.shape[0]) for i in range(int(fill[s]))]
         if clear and letters:
-            self.state = st._replace(dlq_fill=torch.zeros_like(st.dlq_fill))
+            st.dlq_fill.zero_()
         return letters
 
     # ------------------------------------------------------------ snapshots
@@ -1474,7 +1736,13 @@ class StreamEngine:
 
 def create_engine(registry: Registry, *, device="cuda", **kw) -> StreamEngine:
     """Build the engine for ``registry.cfg`` on ``device`` (CUDA by
-    default).  Single device only: ``cfg.n_shards > 1`` raises."""
+    default): a :class:`StreamEngine` when ``cfg.n_shards == 1``, else the
+    sharded engine, its shards emulated on the one device
+    (:mod:`repro_torch.distributed.stream_sharding`)."""
+    if registry.cfg.n_shards > 1:
+        from repro_torch.distributed.stream_sharding import \
+            ShardedStreamEngine
+        return ShardedStreamEngine(registry, device=device, **kw)
     return StreamEngine(registry, device=device, **kw)
 
 

@@ -229,10 +229,13 @@ def execute_batch(progs: torch.Tensor, consts: torch.Tensor,
 
 
 def program_steps(progs: np.ndarray) -> int:
-    """Steps a host ``(N, L, 4)`` program table needs: one past the last
-    instruction that is not a NOP in any row (at least 1).  Cutting the
-    table to this many steps leaves every program's result unchanged."""
-    live = np.nonzero((np.asarray(progs)[..., 0] != OP_NOP).any(axis=0))[0]
+    """Steps a host ``(..., L, 4)`` program table needs (``(N, L, 4)``, or
+    ``(n_shards, n_local, L, 4)`` sharded): one past the last instruction
+    that is not a NOP in any row (at least 1).  Cutting the table to this
+    many steps leaves every program's result unchanged."""
+    ops = np.asarray(progs)[..., 0]
+    live = np.nonzero((ops.reshape(-1, ops.shape[-1]) != OP_NOP)
+                      .any(axis=0))[0]
     return int(live[-1]) + 1 if live.size else 1
 
 

@@ -438,3 +438,18 @@ class Registry:
                        for s in snap["streams"]]
         reg._free_sids = list(snap["free_sids"])
         return reg
+
+    def build_sharded_tables(
+        self, priority: Optional[np.ndarray] = None,
+        n_shards: Optional[int] = None, partition: Optional[str] = None,
+    ):
+        """Lower the graph for the sharded engine: shard-local table slices
+        stacked on a leading ``(n_shards,)`` axis plus the
+        :class:`~repro_torch.distributed.stream_sharding.ShardPlan` holding
+        the global ``sid -> shard`` map.  Returns ``(tables, plan)``."""
+        from repro_torch.distributed.stream_sharding import (plan_partition,
+                                                             shard_tables)
+        flat = self.build_tables(priority)
+        plan = plan_partition(self.cfg, flat.tenant,
+                              n_shards=n_shards, partition=partition)
+        return shard_tables(flat, plan), plan

@@ -4,8 +4,9 @@
 //
 // Replaces: src/repro/kernels/round_fuse/kernel.py, fused_round_call
 // (Pallas body _fused_round_kernel, stages 2+3 in _apply_body) of the JAX
-// package.  The second launch, apply_programs, is also what the sharded
-// slice will call alone as the port of apply_programs_call.
+// package.  The second launch, apply_programs, is also launched alone as
+// the port of apply_programs_call (the sharded round's post-exchange
+// apply, src/repro/kernels/round_fuse/kernel.py, apply_programs_call).
 //
 // What bounds it on this card: not bandwidth.  The pop must read about
 // 35 KB of queue planes at the default queue=2048; the apply reads at most
@@ -22,7 +23,11 @@
 //       loads: targets are -1 for invalid or revoked events, exactly
 //       ref.pop_dispatch_ref.
 //   (b) apply_programs — a grid of 128-thread CTAs, one thread per work
-//       item.  The Pallas megakernel kept the whole (W, R) register file
+//       item, and a second grid dimension over shards: shard s reads its
+//       own table slice (n_tab rows at offset s * n_tab) and work items,
+//       and every shard reads one shared value/timestamp snapshot of
+//       n_snap rows (the sharded round's all-gathered view; the fused
+//       round passes one shard with n_tab == n_snap).  The Pallas megakernel kept the whole (W, R) register file
 //       in VMEM (377 KB at the defaults), more than an SM holds; here each
 //       CTA keeps its 128 items' files in shared memory (128 * R * 4 B,
 //       47 KB at R = 92), laid out register-major so that the 128 threads
@@ -186,13 +191,16 @@ __global__ void pop_dispatch_kernel(
 
 // ---- (b) apply programs ----------------------------------------------------
 
-// Work item w reads its target row from rows[w] and its previous value
-// from t_sid[w] (both clamped into [0, N)), its trigger (source id,
-// timestamp, payload) from entry w / rep of the per-event planes, and its
-// validity from item_valid[w], or from rows[w] >= 0 when item_valid is
-// null (the fused round's -1 targets).
+// Work item w of shard s = blockIdx.y reads its target row from rows[w]
+// (clamped into the shard's n_tab table rows) and its previous value from
+// t_sid[w] (clamped into the n_snap snapshot rows, as every co-input is),
+// its trigger (source id, timestamp, payload) from entry w / rep of the
+// shard's per-event planes, and its validity from item_valid[w], or from
+// rows[w] >= 0 when item_valid is null (the fused round's -1 targets).
+// Every per-item plane holds W entries per shard, every per-event plane
+// W / rep.
 __global__ void __launch_bounds__(kApplyThreads) apply_programs_kernel(
-    Layout lay, int W, int N, int L, int K, int rep,
+    Layout lay, int W, int n_tab, int n_snap, int L, int K, int rep,
     const int* __restrict__ rows, const int* __restrict__ t_sid,
     const uint8_t* __restrict__ item_valid, const int* __restrict__ wi_src,
     const int* __restrict__ wi_ts, const float* __restrict__ wi_vals,
@@ -204,20 +212,23 @@ __global__ void __launch_bounds__(kApplyThreads) apply_programs_kernel(
     uint8_t* __restrict__ keep_out, uint8_t* __restrict__ keep_ts_out,
     uint8_t* __restrict__ passf_out, uint8_t* __restrict__ badf_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int w = blockIdx.x * kApplyThreads + threadIdx.x;
-  if (w >= W) return;
+  const int i = blockIdx.x * kApplyThreads + threadIdx.x;
+  if (i >= W) return;
   float* rg = reinterpret_cast<float*>(smem) + threadIdx.x;  // rg[r * 128]
   const int M = lay.max_in, C = lay.channels, R = lay.n_regs;
+  const size_t sh = blockIdx.y;
+  const size_t w = sh * W + i;                 // this shard's item planes
+  const size_t tab = sh * n_tab;               // and its table slice
 
   const int raw = rows[w];
-  const int row = clamp_row(raw, N);
-  const int tgt = clamp_row(t_sid[w], N);
+  const size_t row = tab + clamp_row(raw, n_tab);
+  const int tgt = clamp_row(t_sid[w], n_snap);
   const bool item_ok = item_valid ? item_valid[w] != 0 : raw >= 0;
-  const int e = w / rep;
+  const size_t e = sh * (W / rep) + i / rep;
   const int src = wi_src[e];
   const int wts = wi_ts[e];
-  const float* wv = wi_vals + (size_t)e * C;
-  const int* in_row = in_table + (size_t)row * M;
+  const float* wv = wi_vals + e * C;
+  const int* in_row = in_table + row * M;
 
   // trigger slot: first valid co-input equal to the source, else 0
   int trig = 0;
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(kApplyThreads) apply_programs_kernel(
   for (int m = 0; m < M; ++m) {
     const int s = in_row[m];
     const bool ok = s >= 0;
-    const int ss = clamp_row(s, N);
+    const int ss = clamp_row(s, n_snap);
     const bool is_trig = m == trig;
     for (int c = 0; c < C; ++c) {
       const float x = is_trig ? wv[c] : values[(size_t)ss * C + c];
@@ -248,10 +259,10 @@ __global__ void __launch_bounds__(kApplyThreads) apply_programs_kernel(
   for (int r = lay.reg_result; r < R; ++r) rg[r * kApplyThreads] = 0.0f;
   const int prev_ts = timestamps[tgt];
 
-  const int4* prog = progs + (size_t)row * L;
-  const float* cst = consts + (size_t)row * K;
-  for (int i = 0; i < L; ++i) {
-    const int4 ins = prog[i];  // (op, dst, a, b)
+  const int4* prog = progs + row * L;
+  const float* cst = consts + row * K;
+  for (int pc = 0; pc < L; ++pc) {
+    const int4 ins = prog[pc];  // (op, dst, a, b)
     const int op = ins.x;
     if (op == OP_NOP) continue;  // a NOP writes its dst back unchanged
     const float av = rg[read_idx(ins.z, R) * kApplyThreads];
@@ -268,7 +279,7 @@ __global__ void __launch_bounds__(kApplyThreads) apply_programs_kernel(
     const float x = rg[(lay.reg_result + c) * kApplyThreads];
     const bool finite = (__float_as_uint(x) & 0x7f800000u) != 0x7f800000u;
     bad |= !finite;
-    new_vals[(size_t)w * C + c] = finite ? x : 0.0f;
+    new_vals[w * C + c] = finite ? x : 0.0f;
   }
   const bool passf = flush(rg[lay.reg_pref * kApplyThreads]) != 0.0f &&
                      flush(rg[lay.reg_postf * kApplyThreads]) != 0.0f;
@@ -308,16 +319,22 @@ extern "C" int pop_dispatch_launch(
   return (int)cudaGetLastError();
 }
 
-// layout: the ten RegLayout fields, in RegLayout order.
+// layout: the ten RegLayout fields, in RegLayout order.  n_shards shards
+// of W items each; tables of n_tab rows per shard, one shared snapshot of
+// n_snap rows.
 extern "C" int apply_programs_launch(
-    const int* layout, int W, int N, int L, int K, int rep, const void* rows,
-    const void* t_sid, const void* item_valid, const void* wi_src,
-    const void* wi_ts, const void* wi_vals, const void* in_table,
-    const void* progs, const void* consts, const void* is_comp,
-    const void* active, const void* values, const void* timestamps,
-    void* new_vals, void* ts_out, void* live, void* keep, void* keep_ts,
-    void* passf, void* badf, void* stream) {
-  if (W == 0) return 0;
+    const int* layout, int n_shards, int W, int n_tab, int n_snap, int L,
+    int K, int rep, const void* rows, const void* t_sid,
+    const void* item_valid, const void* wi_src, const void* wi_ts,
+    const void* wi_vals, const void* in_table, const void* progs,
+    const void* consts, const void* is_comp, const void* active,
+    const void* values, const void* timestamps, void* new_vals, void* ts_out,
+    void* live, void* keep, void* keep_ts, void* passf, void* badf,
+    void* stream) {
+  if (W == 0 || n_shards == 0) return 0;
+  if (n_shards > 65535 || rep <= 0 || W % rep != 0 || n_tab <= 0 ||
+      n_snap <= 0)
+    return (int)cudaErrorInvalidValue;
   Layout lay{layout[0], layout[1], layout[2], layout[3], layout[4],
              layout[5], layout[6], layout[7], layout[8], layout[9]};
   static size_t smem_set[pop_select::kMaxDevices] = {};
@@ -325,9 +342,9 @@ extern "C" int apply_programs_launch(
   const cudaError_t err = pop_select::opt_in_smem(
       (const void*)apply_programs_kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (W + kApplyThreads - 1) / kApplyThreads;
-  apply_programs_kernel<<<blocks, kApplyThreads, smem, (cudaStream_t)stream>>>(
-      lay, W, N, L, K, rep, (const int*)rows, (const int*)t_sid,
+  const dim3 grid((W + kApplyThreads - 1) / kApplyThreads, n_shards);
+  apply_programs_kernel<<<grid, kApplyThreads, smem, (cudaStream_t)stream>>>(
+      lay, W, n_tab, n_snap, L, K, rep, (const int*)rows, (const int*)t_sid,
       (const uint8_t*)item_valid, (const int*)wi_src, (const int*)wi_ts,
       (const float*)wi_vals, (const int*)in_table, (const int4*)progs,
       (const float*)consts, (const uint8_t*)is_comp, (const uint8_t*)active,

@@ -1,12 +1,17 @@
-"""Launchers of the CUDA fused round (``csrc/fused_round.cu``), the Hopper
-port of the JAX package's Pallas ``fused_round_call``.
+"""Launchers of the CUDA round-fusion kernels, the Hopper ports of the JAX
+package's Pallas ``fused_round_call``, ``apply_programs_call`` and
+``exchange_compact_call``.
 
 The Pallas megakernel held the whole (W, R) register file in VMEM, which
-one SM's shared memory cannot hold at the default widths, so the round
-is two launches on PyTorch's current stream: ``pop_dispatch`` (one CTA:
-selection pop + fan-out) and ``apply_programs`` (a grid over the W work
-items: co-input fetch, VM, window gate).  See the note at the top of the
-source for what bounds them.
+one SM's shared memory cannot hold at the default widths, so the fused
+round is two launches on PyTorch's current stream: ``pop_dispatch`` (one
+CTA: selection pop + fan-out) and ``apply_programs`` (a grid over the W
+work items: co-input fetch, VM, window gate), both in
+``csrc/fused_round.cu``.  ``apply_programs_call`` launches the second
+alone for the sharded round's post-exchange apply (every shard in one
+launch), and ``exchange_compact_call`` the compaction of
+``csrc/exchange_compact.cu``.  See the notes at the top of the sources
+for what bounds them.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ def _lib():
         lib.pop_dispatch_launch.argtypes = [_P] * 10 + [_I] * 5 + [_P] * 8
         lib.pop_dispatch_launch.restype = _I
         lib.apply_programs_launch.argtypes = \
-            [ctypes.POINTER(_I)] + [_I] * 5 + [_P] * 21
+            [ctypes.POINTER(_I)] + [_I] * 7 + [_P] * 21
         lib.apply_programs_launch.restype = _I
         lib._typed = True
     return lib
@@ -56,24 +61,32 @@ def _check_layout(layout: RegLayout) -> None:
 def _plan_apply(lib, layout: RegLayout, dev, rep: int, rows, t_sid,
                 item_valid, wi_src, wi_ts, wi_vals, in_table, progs, consts,
                 is_composite, active, values, timestamps):
-    """Stage one ``apply_programs`` launch; ``rows``/``t_sid`` (W,),
-    per-event planes (W / rep,).  ``item_valid=None`` takes ``rows >= 0``.
-    Returns ``(launch, (new_vals, ts_out, live, keep, keep_ts, passf,
-    badf))``."""
-    W = rows.shape[0]
-    N, M = in_table.shape
-    L, K = progs.shape[1], consts.shape[1]
+    """Stage one ``apply_programs`` launch.  Tables are (n_tab, ...) with
+    (W,) work items, or (S, n_tab, ...) with (S, W) work items (S shards,
+    one grid row each); per-event planes hold W / rep entries per shard;
+    the value/timestamp snapshot (n_snap, ...) is shared.
+    ``item_valid=None`` takes ``rows >= 0``.  Returns ``(launch,
+    (new_vals, ts_out, live, keep, keep_ts, passf, badf))``, each output
+    shaped like ``rows``."""
+    S = in_table.shape[0] if in_table.dim() == 3 else 1
+    n_tab, M = in_table.shape[-2:]
+    W = rows.shape[-1]
+    L, K = progs.shape[-2], consts.shape[-1]
+    n_snap = timestamps.shape[0]
     C = layout.channels
     if progs.data_ptr() % 16:
         raise ValueError("progs must be 16-byte aligned")
-    new_vals = torch.empty((W, C), dtype=torch.float32, device=dev)
-    ts_out = torch.empty((W,), dtype=torch.int32, device=dev)
-    masks = [torch.empty((W,), dtype=torch.bool, device=dev)
+    if rows.numel() != S * W or W % rep:
+        raise ValueError("work items do not match the tables' shards")
+    shape = tuple(rows.shape)
+    new_vals = torch.empty(shape + (C,), dtype=torch.float32, device=dev)
+    ts_out = torch.empty(shape, dtype=torch.int32, device=dev)
+    masks = [torch.empty(shape, dtype=torch.bool, device=dev)
              for _ in range(5)]
     ins = (rows, t_sid, item_valid, wi_src, wi_ts, wi_vals, in_table,
            progs, consts, is_composite, active, values, timestamps)
     fn = lib.apply_programs_launch
-    args = ((_I * 10)(*layout), W, N, L, K, rep,
+    args = ((_I * 10)(*layout), S, W, n_tab, n_snap, L, K, rep,
             _build.ptr(rows), _build.ptr(t_sid),
             None if item_valid is None else _build.ptr(item_valid),
             *[_build.ptr(t) for t in (wi_src, wi_ts, wi_vals, in_table,
@@ -166,3 +179,124 @@ def fused_round_call(prio_slot, seq, valid, t_slot, w_slot, sid, vals, ts,
 
 
 fused_round_call.launches = 0
+
+
+def plan_apply_programs(layout: RegLayout, in_table, progs, consts,
+                        is_composite, active, rows, t_sid, wi_src, wi_vals,
+                        wi_ts, wi_valid, values_by_sid, timestamps_by_sid):
+    """Check and stage stages 2+3 alone on the card without launching
+    them.  Per-row tables are (S, n_tab, ...) with (S, W) work items:
+    every shard in one launch, each reading its own table slice.  ``rows`` index the tables,
+    ``t_sid`` and every co-input the shared (n_snap, ...) snapshot.
+    Returns ``(launch, outputs)``: ``launch`` only enqueues the kernel,
+    ``outputs`` is what ``apply_programs_call`` returns."""
+    dev = wi_vals.device
+    if dev.type != "cuda":
+        raise ValueError("apply_programs_call takes CUDA tensors")
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    if in_table.dim() != 3:
+        raise ValueError("apply_programs_call takes (S, n_tab, ...) tables")
+    S, n_tab = in_table.shape[:2]
+    W = rows.shape[-1]
+    C = layout.channels
+    if in_table.shape[-1] != layout.max_in or wi_vals.shape[-1] != C:
+        raise ValueError("tables do not match the register layout")
+    if tuple(rows.shape) != (S, W) or tuple(progs.shape[:-2]) != \
+            (S, n_tab) or values_by_sid.shape[-1] != C:
+        raise ValueError("apply_programs_call: inconsistent shapes")
+    _check_layout(layout)
+    return _plan_apply(
+        _lib(), layout, dev, 1, _on(rows, dev, i32), _on(t_sid, dev, i32),
+        _on(wi_valid, dev, b8), _on(wi_src, dev, i32), _on(wi_ts, dev, i32),
+        _on(wi_vals, dev, f32), _on(in_table, dev, i32),
+        _on(progs, dev, i32), _on(consts, dev, f32),
+        _on(is_composite, dev, b8), _on(active, dev, b8),
+        _on(values_by_sid, dev, f32), _on(timestamps_by_sid, dev, i32))
+
+
+def apply_programs_call(layout: RegLayout, in_table, progs, consts,
+                        is_composite, active, rows, t_sid, wi_src, wi_vals,
+                        wi_ts, wi_valid, values_by_sid, timestamps_by_sid):
+    """Stages 2+3 alone on the card (the sharded round's post-exchange
+    apply; shapes as in ``plan_apply_programs``).  Returns ``(new_vals,
+    ts_out, live, keep, keep_ts, passf, badf)`` — bit-identical to
+    ``ref.apply_programs_ref`` shard by shard.  Counts one launch per
+    call in ``apply_programs_call.launches``."""
+    launch, out = plan_apply_programs(
+        layout, in_table, progs, consts, is_composite, active, rows, t_sid,
+        wi_src, wi_vals, wi_ts, wi_valid, values_by_sid, timestamps_by_sid)
+    launch()
+    apply_programs_call.launches += 1
+    return out
+
+
+apply_programs_call.launches = 0
+
+MAX_SHARDS = 32         # destinations exchange_compact takes
+
+
+def _exchange_lib():
+    lib = _build.load("exchange_compact")
+    if not getattr(lib, "_typed", False):
+        lib.exchange_compact_launch.argtypes = [_I] * 5 + [_P] * 10
+        lib.exchange_compact_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def plan_exchange_compact(wi_t, wi_src, wi_ts, wi_its, wi_vals, dest_shard,
+                          n_shards: int, slots: int):
+    """Check and stage the exchange compaction on the card without
+    launching it.  Work items are (S, W) planes of S senders (one CTA
+    each, one launch for all);
+    ``dest_shard == n_shards`` marks unrouted lanes.  Returns ``(launch,
+    (xi, xf, x_drop))`` shaped as ``exchange_compact_call`` returns
+    them."""
+    dev = wi_vals.device
+    if dev.type != "cuda":
+        raise ValueError("exchange_compact_call takes CUDA tensors")
+    if not 1 <= n_shards <= MAX_SHARDS or slots < 1:
+        raise ValueError(f"{n_shards} shards x {slots} slots: the kernel "
+                         f"takes 1..{MAX_SHARDS} shards and >= 1 slot")
+    if wi_t.dim() != 2:
+        raise ValueError("exchange_compact_call takes (S, W) work items")
+    S, W = wi_t.shape
+    C = wi_vals.shape[-1]
+    if wi_vals.shape[:-1] != wi_t.shape:
+        raise ValueError("exchange_compact_call: inconsistent shapes")
+    i32 = torch.int32
+    ins = [_on(x, dev, i32) for x in (wi_t, wi_src, wi_ts, wi_its)]
+    vals = _on(wi_vals, dev, torch.float32)
+    dest = _on(dest_shard, dev, i32)
+    xi = torch.empty((S, n_shards, slots, 4), dtype=i32, device=dev)
+    xf = torch.empty((S, n_shards, slots, C), dtype=torch.float32,
+                     device=dev)
+    drop = torch.empty(tuple(wi_t.shape), dtype=torch.bool, device=dev)
+    fn = _exchange_lib().exchange_compact_launch
+    args = (S, W, C, n_shards, slots,
+            *[_build.ptr(t) for t in (*ins, vals, dest, xi, xf, drop)],
+            _build.stream_ptr(dev))
+
+    def launch(keep_alive=(ins, vals, dest, xi, xf, drop)):
+        _build.check(fn(*args), "exchange_compact")
+
+    return launch, (xi, xf, drop)
+
+
+def exchange_compact_call(wi_t, wi_src, wi_ts, wi_its, wi_vals, dest_shard,
+                          n_shards: int, slots: int):
+    """Rank-and-scatter work items into (n_shards, slots) exchange
+    buckets on the card, array order kept per destination (shapes as in
+    ``plan_exchange_compact``).  Returns ``(xi, xf, x_drop)``: int32
+    ``(t, src, ts, its)`` buckets (-1 where empty), float32 payloads
+    (+0.0 where empty, bits unchanged) and the per-item overflow mask —
+    bit-identical to ``ref.exchange_compact_ref`` sender by sender.
+    Counts one launch per call in ``exchange_compact_call.launches``."""
+    launch, out = plan_exchange_compact(wi_t, wi_src, wi_ts, wi_its,
+                                        wi_vals, dest_shard, n_shards, slots)
+    launch()
+    exchange_compact_call.launches += 1
+    return out
+
+
+exchange_compact_call.launches = 0

@@ -4,7 +4,9 @@ the port of the JAX package's ``round_fuse/ref.py``.
 
 ``pop_dispatch_ref`` is ``sched_pop`` + the engine's stage-1 expansion,
 ``apply_programs_ref`` is ``engine.process_work_items`` with the
-reduced-branch VM (the transcendental opcodes run as NOP).
+reduced-branch VM (the transcendental opcodes run as NOP), and
+``exchange_compact_ref`` is the sharded round's ranked-scatter
+compaction.
 """
 from __future__ import annotations
 
@@ -208,3 +210,36 @@ def apply_programs_ref(
     live = wi_valid & is_composite[r] & active[r]
     keep = live & keep_ts & passf
     return new_vals, ts_out, live, keep, keep_ts, passf, badf
+
+
+# --------------------------------------------------------------------------
+# sharded exchange compaction
+# --------------------------------------------------------------------------
+
+def exchange_compact_ref(wi_t, wi_src, wi_ts, wi_its, wi_vals, dest_shard,
+                         n_shards: int, slots: int):
+    """Rank-and-scatter (W,) work items of one sending shard into fixed
+    per-destination exchange buckets: per destination, items keep array
+    order; an item ranked ``>= slots`` overflows.  ``dest_shard == n_shards``
+    marks unrouted lanes (they take no rank).  Returns ``(xi, xf,
+    x_drop)``: (D, E, 4) int32 ``(t, src, ts, its)`` (-1 where empty),
+    (D, E, C) float32 payloads (+0.0 where empty) and the (W,) overflow
+    mask."""
+    C = wi_vals.shape[1]
+    dev = wi_t.device
+    routed = dest_shard < n_shards
+    d_safe = torch.clamp(dest_shard, 0, n_shards - 1).long()
+    onehot = routed[:, None] & (
+        d_safe[:, None] == torch.arange(n_shards, device=dev)[None, :])
+    rank = (torch.cumsum(onehot.to(torch.int32), 0, dtype=torch.int32)
+            - 1).gather(1, d_safe[:, None])[:, 0]
+    fits = routed & (rank < slots)
+    DE = n_shards * slots
+    slot = torch.where(fits, d_safe * slots + rank, DE).long()
+    payload = torch.stack([wi_t, wi_src, wi_ts, wi_its], dim=-1)   # (W, 4)
+    xi = torch.full((DE + 1, 4), -1, dtype=torch.int32, device=dev)
+    xi[slot] = payload.to(torch.int32)
+    xf = torch.zeros((DE + 1, C), dtype=torch.float32, device=dev)
+    xf[slot] = wi_vals
+    return (xi[:DE].reshape(n_shards, slots, 4),
+            xf[:DE].reshape(n_shards, slots, C), routed & ~fits)

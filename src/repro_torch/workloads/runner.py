@@ -14,9 +14,8 @@ End-to-end latency is the terminal stage's, so the runner filters
 latency records to each flow's ``sink_sid`` before the tracker sees them
 (:func:`sink_records`).
 
-Not ported yet, and raising ``NotImplementedError``: more than one shard,
-PRED flows and their serving bridge (``wire_pred``), and the autoscaler
-(``drive(scaler=...)``).
+Not ported yet, and raising ``NotImplementedError``: PRED flows and their
+serving bridge (``wire_pred``), and the autoscaler (``drive(scaler=...)``).
 """
 from __future__ import annotations
 
@@ -71,23 +70,20 @@ def build_suite(n_tenants: int = 12, *,
                 cfg_overrides: Optional[Dict] = None,
                 device="cuda", use_kernel: Optional[bool] = None
                 ) -> IoTSuite:
-    """Assemble one engine on ``device`` running ``n_tenants`` IoT
-    pipelines, kinds assigned round-robin from ``kinds``; tenant ``t``
-    owns trace device ``t``.  ``slo_rounds`` (None to disable) is every
+    """Assemble one engine on ``device`` (sharded when ``n_shards > 1``)
+    running ``n_tenants`` IoT pipelines, kinds assigned round-robin from
+    ``kinds``; tenant ``t`` owns trace device ``t``.  ``slo_rounds`` (None to disable) is every
     tenant's latency target; ``fused_round`` pins the engine's
     fused/staged round path (None = config default).  ``use_kernel`` goes
     to the engine and the window plane (``False``: the kernels' plain
     versions on any device)."""
-    if n_shards > 1:
-        raise NotImplementedError(
-            "n_shards > 1: the sharded engine is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
     if "pred" in kinds:
         raise NotImplementedError(
             "PRED flows need the serving bridge and the model plane, which "
             "are not ported yet (ROADMAP.md, queue 1, items 11 and 13)")
     kinds = [kinds[i % len(kinds)] for i in range(n_tenants)]
     n_streams = sum(_SIDS_PER_KIND[k] for k in kinds) + 2
+    n_streams = -(-n_streams // n_shards) * n_shards   # pad to shard multiple
     over = dict(cfg_overrides or {})
     if fused_round is not None:
         over["fused_round"] = fused_round

@@ -238,3 +238,109 @@ def test_iot_suite_on_the_card_equals_the_cpu(dev):
     for k in a["aggregates"]:
         np.testing.assert_array_equal(a["aggregates"][k].view(np.int32),
                                       b["aggregates"][k].view(np.int32))
+
+
+@pytest.mark.parametrize("S,W,D,E,C", [(1, 40, 1, 16, 3), (2, 300, 2, 64, 4),
+                                       (3, 257, 3, 9, 1), (8, 129, 8, 2, 4)])
+def test_exchange_compact_kernel_matches_plain(dev, S, W, D, E, C):
+    from repro_torch.kernels.round_fuse.kernel import exchange_compact_call
+    from repro_torch.kernels.round_fuse.ops import exchange_compact
+    rng = np.random.default_rng(S * W + E)
+    vals = rng.standard_normal((S, W, C)).astype(np.float32)
+    vals.ravel()[rng.integers(0, vals.size, 4)] = [np.nan, -0.0, np.inf,
+                                                   1e-40]
+    dest = rng.integers(0, D + 2, (S, W)).astype(np.int32)
+    dest[:, : W // 3] = 0                      # one destination overflows
+    case = [rng.integers(-1, 900, (S, W)).astype(np.int32)
+            for _ in range(4)] + [vals, dest]
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    before = exchange_compact_call.launches
+    got = exchange_compact_call(*args, D, E)
+    assert exchange_compact_call.launches == before + 1
+    _assert_bits(got, exchange_compact(*args, D, E, use_kernel=False))
+
+
+@pytest.mark.parametrize("S,n_tab,n_snap,W", [(1, 16, 16, 33),
+                                              (4, 12, 48, 130)])
+def test_apply_programs_kernel_matches_plain(dev, S, n_tab, n_snap, W):
+    from repro_torch.kernels.round_fuse.kernel import apply_programs_call
+    from repro_torch.kernels.round_fuse.ops import apply_programs
+    rng = np.random.default_rng(S + W)
+    cfg = EngineConfig(n_streams=n_snap, channels=3, max_in=4, prog_len=10,
+                       n_consts=6, n_temps=6)
+    layout = rf_ref.RegLayout.from_cfg(cfg)
+    R = layout.n_regs
+    pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
+    values = rng.standard_normal((n_snap, 3)).astype(np.float32)
+    values.ravel()[rng.integers(0, values.size, 3)] = [np.nan, -0.0, 1e-40]
+    case = [rng.integers(-2, n_snap + 2, (S, n_tab, 4)).astype(np.int32),
+            np.stack([rng.choice(pool, (S, n_tab, 10)),
+                      rng.integers(0, R + 4, (S, n_tab, 10)),
+                      rng.integers(0, R + 4, (S, n_tab, 10)),
+                      rng.integers(0, R + 4, (S, n_tab, 10))],
+                     axis=-1).astype(np.int32),
+            rng.standard_normal((S, n_tab, 6)).astype(np.float32),
+            rng.random((S, n_tab)) < 0.7, rng.random((S, n_tab)) < 0.9,
+            rng.integers(0, n_tab, (S, W)).astype(np.int32),
+            rng.integers(0, n_snap, (S, W)).astype(np.int32),
+            rng.integers(-2, n_snap + 2, (S, W)).astype(np.int32),
+            rng.standard_normal((S, W, 3)).astype(np.float32),
+            rng.integers(-5, 30, (S, W)).astype(np.int32),
+            rng.random((S, W)) < 0.8, values,
+            rng.integers(-5, 30, n_snap).astype(np.int32)]
+    args = [torch.from_numpy(a).to(dev) for a in case]
+    before = apply_programs_call.launches
+    got = apply_programs_call(layout, *args)
+    assert apply_programs_call.launches == before + 1
+    _assert_bits(got, apply_programs(layout, *args, use_kernel=False))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_sharded_engine_on_the_card_equals_the_cpu(dev, fused):
+    """A 2-shard engine with undersized exchange buckets, churned live,
+    on the card (kernels) and on the CPU (plain versions): every round's
+    sink and every state leaf bit for bit, and no table reallocated."""
+    engines = []
+    for device in (dev, "cpu"):
+        cfg = EngineConfig(n_streams=24, n_tenants=4, batch=8, queue=64,
+                           max_in=4, max_out=4, prog_len=24, n_temps=12,
+                           n_shards=2, exchange_slots=3, dlq_slots=16,
+                           fused_round=fused)
+        reg = Registry.with_capacity(cfg)
+        t = reg.create_tenant("t")
+        srcs = [reg.create_stream(t, f"s{i}", ["v"]) for i in range(6)]
+        comps = [reg.create_composite(t, f"c{i}", ["v"], srcs[i:i + 3],
+                                      {"v": "in0.v + in1.v * 2 + in2.v"})
+                 for i in range(4)]
+        if not fused:
+            reg.create_composite(t, "hot", ["v"], [srcs[0]],
+                                 {"v": "tanh(in0.v)"})
+        engines.append((create_engine(reg, device=device), t, srcs, comps))
+    eg = engines[0][0]
+    def ptrs():
+        return [t.data_ptr() for t in (*eg.tables, eg._run_tables.progs)]
+    before = ptrs()
+    rng = np.random.default_rng(3)
+    for r in range(8):
+        if r == 3:
+            for e, t, srcs, comps in engines:
+                e.admit_composite(t, "late", ["v"], [srcs[1], comps[0]],
+                                  {"v": "in0.v - in1.v"})
+                e.swap_program(comps[2], {"v": "in0.v * 3"})
+        if r == 6:
+            for e, *_ in engines:
+                e.revoke_stream(e.registry.streams[-1].sid)
+        posts = [(int(i), float(rng.standard_normal()), r * 4 + int(i) % 3)
+                 for i in rng.choice(6, 4, replace=False)]
+        for e, t, srcs, comps in engines:
+            for i, v, ts in posts:
+                e.post(srcs[i], [v], ts)
+        _assert_bits(tuple(eg.round()), tuple(engines[1][0].round()))
+        ec = engines[1][0]
+        for f in eg.state._fields:
+            if f == "stats":
+                for k in eg.state.stats:
+                    _assert_bits(eg.state.stats[k], ec.state.stats[k])
+            else:
+                _assert_bits(getattr(eg.state, f), getattr(ec.state, f))
+    assert ptrs() == before

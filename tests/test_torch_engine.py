@@ -258,6 +258,6 @@ def test_unported_planes_raise():
         build_suite(2, kinds=("pred",), device="cpu")
     sharded = P.Registry(P.EngineConfig(n_streams=4, batch=2, queue=4,
                                         n_shards=2))
-    with pytest.raises(NotImplementedError, match="shard"):
-        P.create_engine(sharded, device="cpu")
+    with pytest.raises(NotImplementedError, match="durability"):
+        P.create_engine(sharded, device="cpu").snapshot()
     assert PE.RANK_LIM * PE.FAIR_SCALE <= np.iinfo(np.int32).max

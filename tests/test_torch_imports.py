@@ -25,7 +25,12 @@ def _modules():
 def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
     for m in ("repro_torch.core.engine", "repro_torch.core.windows",
-              "repro_torch.core.slo", "repro_torch.kernels.window_agg.ops",
+              "repro_torch.core.slo", "repro_torch.core.admission",
+              "repro_torch.distributed",
+              "repro_torch.distributed.stream_sharding",
+              "repro_torch.kernels.round_fuse.kernel",
+              "repro_torch.kernels.round_fuse.ops",
+              "repro_torch.kernels.window_agg.ops",
               "repro_torch.kernels.window_agg.kernel",
               "repro_torch.workloads.dataflows",
               "repro_torch.workloads.runner",

@@ -99,6 +99,30 @@ def test_drive_bitwise(fused, K):
                                       _bits(getattr(store_j, f)), err_msg=f)
 
 
+def test_two_shard_drive_bitwise():
+    """``drive()`` on a 2-shard suite (fused, K = 3) against ``repro``'s
+    2-shard suite: records, SLO report, window aggregates, counters and
+    every state leaf with its shard axis; and equal to the port's
+    1-shard suite on the records and the report."""
+    K = 3
+    sj = _suite(JWL, True, K, n_shards=2)
+    sp = _suite(PWL, True, K, n_shards=2)
+    s1 = _suite(PWL, True, K)
+    rj, rp, r1 = JWL.drive(sj, K), PWL.drive(sp, K), PWL.drive(s1, K)
+    assert sp.engine.plan.n_shards == 2
+    assert rp["records"] == rj["records"] == r1["records"] > 0
+    assert rp["slo_report"] == rj["slo_report"] == r1["slo_report"]
+    for k in rj["aggregates"]:
+        np.testing.assert_array_equal(_bits(rp["aggregates"][k]),
+                                      _bits(rj["aggregates"][k]), err_msg=k)
+    assert sp.engine.counters() == sj.engine.counters()
+    for f in sj.engine.state._fields:
+        if f != "stats":
+            np.testing.assert_array_equal(
+                _bits(getattr(sp.engine.state, f)),
+                _bits(getattr(sj.engine.state, f)), err_msg=f)
+
+
 def _chain_cfg(mod):
     return mod(n_streams=16, n_tenants=4, channels=2, max_in=2, max_out=2,
               batch=8, queue=64, prog_len=16, n_temps=8, sink_buffer=16,
@@ -161,8 +185,6 @@ def test_trace_and_slo_tracker_match_jax():
 def test_unported_workload_planes_raise():
     with pytest.raises(NotImplementedError, match="serving bridge"):
         PWL.build_suite(3, kinds=("etl", "pred"), device="cpu")
-    with pytest.raises(NotImplementedError, match="shard"):
-        PWL.build_suite(3, n_shards=2, device="cpu")
     suite = PWL.build_suite(2, trace=PWL.TraceConfig(n_devices=2, rounds=1),
                             device="cpu")
     with pytest.raises(NotImplementedError, match="autoscaler"):
