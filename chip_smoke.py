@@ -17,9 +17,18 @@ Phases, each printed on its own line:
    ``exchange_compact`` at the 4-shard smoke shape (4 senders of 1,024
    items, 4 x 1,024 slots) and at D in {1, 2, 3, 8} with overflow,
    every item to one shard, unrouted lanes and W not a multiple of the
-   block, and ``apply_programs`` at 4 shards x 4,096 items against 1,024
+   block, ``apply_programs`` at 4 shards x 4,096 items against 1,024
    table rows and a 4,096-row snapshot and at smaller odd shapes, on
-   adversarial inputs (NaN, -0.0, subnormals, empty and full windows).
+   adversarial inputs (NaN, -0.0, subnormals, empty and full windows),
+   ``onehot_gather`` on the sweeps of ``tests/test_kernels.py``, the
+   (4096, 16) out-table with 64 ids, the (4096, 4) value snapshot with
+   4,096 ids and the (1024, 16) shard table (int32 tables over the whole
+   range; float tables with -0.0, subnormals, NaN payloads and
+   infinities, whose bits must pass), and ``stream_dispatch`` with and
+   without the early mask at the smoke shape ((4096, 16) out-table,
+   B = 64), the shard shape ((1024, 16) against 4,096 timestamps) and
+   odd shapes (valid events with out-of-range sids, entries below -1 and
+   at or past the timestamps, INT32_MIN/MAX timestamps).
 3. Drive the fused main path (``StreamEngine.round``) at the default
    ``EngineConfig`` widths with 4,096 streams for 48 rounds, once through
    the kernels and once through their plain versions; every state leaf,
@@ -52,27 +61,42 @@ Phases, each printed on its own line:
    engine must hold the single-device engine's values, timestamps and
    counters; then 24 heavy rounds of 64 posted SUs, the last 16 timed
    (the engine ingests one batch per round across all shards; the
-   warm-up builds the emission backlog that fills the shards' pops).  ``sched_pop``, ``exchange_compact`` and
-   ``apply_programs`` must have launched 4, 1 and 1 times per round.
+   warm-up builds the emission backlog that fills the shards' pops).
+   ``sched_pop``, ``exchange_compact``, ``onehot_gather`` (the by-sid
+   value snapshot) and ``apply_programs`` must have launched 4, 1, 1 and
+   1 times per round.
 9. Phase 4 on the 4-shard fused engine: three supersteps of K = 8 under
    the sync debug mode against 24 eager sharded rounds.
 10. Phase 8 on the staged path (phase 5's registry), kernels against
-    plain, 16 heavy rounds, the last 8 timed; ``exchange_compact`` must
-    have launched once per round, ``apply_programs`` never.
+    plain, 16 heavy rounds, the last 8 timed; ``exchange_compact`` and
+    ``onehot_gather`` must have launched once per round,
+    ``apply_programs`` never.
 11. The IoT suite at 128 tenants, where every round drains, at 4 shards
     against 1 shard, both through the kernels: latency histograms, SLO
     report, records, window aggregates and counters equal.  Then phase 7
     on 4 shards: the full-width suite through the kernels and through
     their plain versions, bitwise.
-12. Time each kernel at the main path's shapes (CUDA events around many
+12. The engine with the stream-dispatch fan-out
+    (``fanout_fn=make_fanout()``) on every path that calls it: 16 staged
+    single-device rounds (phase 5's registry), two staged supersteps of
+    K = 8 (their rounds under the sync debug mode, and equal to 16 eager
+    rounds), 16 heavy 4-shard fused rounds and 4 heavy 4-shard staged
+    rounds.  On each, the engine with the kernel must equal the same
+    engine with ``make_fanout(use_kernel=False)`` and with the default
+    ``fanout_reference`` bitwise (every state leaf, stat, DLQ entry,
+    sink and spool), and ``stream_dispatch`` must have launched once per
+    round and shard.
+13. Time each kernel at the main path's shapes (CUDA events around many
     back-to-back launches with the host preparation done beforehand, and
     ``torch.profiler``'s device time per CUDA kernel; the sharded
     kernels' inputs are recorded from one more heavy round of phase 8's
-    engine)
+    engine, the dispatch kernels' from one more round of phase 12's)
     beside its plain version, and work out its bound from the bytes this
     run's data needs and from its operations (for the two pops, the
     dependent chain of their selection steps, the card's cycles per
-    dependent instruction measured here by a one-thread probe).
+    dependent instruction measured here by a one-thread probe); for the
+    dispatch kernels ``torch.index_select`` of the same rows is timed as
+    the nearest library call.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -516,6 +540,96 @@ def phase_shard_kernels(torch, dev, cfg, D):
     return {"exchange_compact": err_x, "apply_programs": err_a}
 
 
+FLOAT_SPECIALS = (0x80000000, 0x00000001, 0x807fffff, 0x7fc12345,
+                  0xffa00001, 0x7f800000, 0xff800000)   # -0.0, subnormals,
+#                 NaN payloads, +inf, -inf
+
+
+def gather_case(rng, N, F, M, dtype):
+    """A table and ids for ``onehot_gather``: ids from -2 to N + 1; int32
+    entries over the whole range, or float32 entries with -0.0,
+    subnormals, NaN payloads and infinities among them."""
+    import numpy as np
+    if dtype == "int32":
+        table = rng.integers(-2**31, 2**31 - 1, (N, F)).astype(np.int32)
+    else:
+        table = rng.standard_normal((N, F)).astype(np.float32)
+        table.reshape(-1)[rng.integers(0, N * F, 2 * len(
+            FLOAT_SPECIALS))] = np.array(FLOAT_SPECIALS * 2,
+                                         np.uint32).view(np.float32)
+    return table, rng.integers(-2, N + 2, M).astype(np.int32)
+
+
+def dispatch_case(rng, B, F, n_tab, N):
+    """Events and tables for ``stream_dispatch``: valid events with sids
+    outside [0, n_tab), out-table entries below -1 and at or past the N
+    timestamps, INT32_MIN and INT32_MAX event and table timestamps."""
+    import numpy as np
+    sid = rng.integers(-3, n_tab + 3, B).astype(np.int32)
+    valid = rng.random(B) < 0.8
+    sid[:3], valid[:3] = (-1, n_tab, n_tab + 2), True
+    ts = rng.integers(-2**31, 2**31 - 1, B).astype(np.int32)
+    ts[3:5] = (-2**31, 2**31 - 1)
+    out_table = rng.integers(-6, N + 8, (n_tab, F)).astype(np.int32)
+    tstab = rng.integers(-2**31, 2**31 - 1, N).astype(np.int32)
+    tstab[rng.integers(0, N, 2)] = (-2**31, 2**31 - 1)
+    return sid, ts, valid, out_table, tstab
+
+
+def phase_dispatch_kernels(torch, dev, cfg, D):
+    """``onehot_gather`` and ``stream_dispatch`` bitwise against their
+    plain versions: the sweeps of ``tests/test_kernels.py``, the smoke
+    shapes ((N, F) = (4096, 16) out-table, B = 64; the (4096, 4) value
+    snapshot gathered by 4,096 ids), the D-shard shape (a (N / D, 16)
+    shard out-table against N timestamps), both ``with_early`` values,
+    and adversarial inputs.  Returns the max abs error of each (0.0)."""
+    import numpy as np
+    from repro_torch.kernels.stream_dispatch.kernel import (
+        onehot_gather_call, stream_dispatch_call)
+    from repro_torch.kernels.stream_dispatch.ops import (onehot_gather,
+                                                         stream_dispatch)
+    rng = np.random.default_rng(SEED + 5)
+    N, F, B, C = cfg.n_streams, cfg.max_out, cfg.batch, cfg.channels
+    err_g, shapes = 0.0, []
+    for (Ng, Fg, M) in [(64, 4, 16), (300, 7, 33), (1024, 16, 256),
+                        (128, 1, 8), (N, F, B), (N, C, N), (N // D, F, B)]:
+        for dtype in ("int32", "float32"):
+            table, ids = (torch.from_numpy(a).to(dev)
+                          for a in gather_case(rng, Ng, Fg, M, dtype))
+            got = onehot_gather_call(table, ids)
+            want = onehot_gather(table, ids, use_kernel=False)
+            torch.cuda.synchronize()
+            err_g = max(err_g, compare(f"onehot_gather ({Ng}, {Fg}) "
+                                       f"{dtype} M={M}", got, want))
+        shapes.append(f"({Ng}, {Fg}) x {M}")
+    print(f"[kernels] onehot_gather at {', '.join(shapes)}, int32 and "
+          f"float32 tables (ids -2..N+1; -0.0, subnormals, NaN payloads, "
+          f"infinities): bitwise equal to the plain version", flush=True)
+    err_d, shapes = 0.0, []
+    for (n_tab, Nd, Fd, Bd) in [(64, 64, 4, 16), (256, 256, 16, 64),
+                                (N, N, F, B), (N // D, N, F, B),
+                                (300, 97, 3, 20), (1, 5, 1, 5)]:
+        args = [torch.from_numpy(a).to(dev)
+                for a in dispatch_case(rng, Bd, Fd, n_tab, Nd)]
+        for with_early in (True, False):
+            got = stream_dispatch_call(*args, with_early=with_early)
+            want = stream_dispatch(*args, with_early=with_early,
+                                   use_kernel=False)
+            torch.cuda.synchronize()
+            tag = f"stream_dispatch ({n_tab}, {Fd}) vs {Nd} B={Bd}"
+            err_d = max(err_d, compare(f"{tag} targets", got[0], want[0]))
+            if with_early:
+                err_d = max(err_d, compare(f"{tag} early", got[1], want[1]))
+            elif got[1] is not None or want[1] is not None:
+                fail(f"{tag}: a mask without with_early")
+        shapes.append(f"({n_tab}, {Fd}) vs {Nd} x B={Bd}")
+    print(f"[kernels] stream_dispatch at {', '.join(shapes)}, with_early "
+          f"True and False (valid events with out-of-range sids, entries "
+          f"< -1 and >= N, INT32_MIN/MAX timestamps): targets and early "
+          f"masks bitwise equal to the plain version", flush=True)
+    return {"onehot_gather": err_g, "stream_dispatch": err_d}
+
+
 # --------------------------------------------------------------------------
 # phases 3-4: the main path at full width
 # --------------------------------------------------------------------------
@@ -794,7 +908,7 @@ def phase_suite(torch, dev, counters, n_shards=1):
     rounds = n_steps * SUITE["K"]
     want = {"fused_round_call": rounds} if n_shards == 1 else {
         "sched_pop_call": n_shards * rounds, "apply_programs_call": rounds,
-        "exchange_compact_call": rounds}
+        "exchange_compact_call": rounds, "onehot_gather_call": rounds}
     if any(launches[k] != n for k, n in want.items()) \
             or launches["window_agg_call"] < 1:
         fail(f"IoT {tag}: launches {launches} in {n_steps} supersteps")
@@ -989,6 +1103,7 @@ def phase_sharded(torch, dev, reg, sources, path, counters, waves, heavy,
     if [table_ptrs(e) for e in (e_k, e_p)] != ptrs:
         fail(f"sharded {path}: an edit or a round reallocated a table")
     want = {"sched_pop_call": SHARDS * rounds, "exchange_compact_call": rounds,
+            "onehot_gather_call": rounds,
             "apply_programs_call": rounds if path == "fused" else 0}
     for name, n in want.items():
         if launches[name] != n:
@@ -1066,7 +1181,156 @@ def phase_shard_suite(torch, dev, counters):
 
 
 # --------------------------------------------------------------------------
-# phase 8: timings at the main path's shapes
+# phase 12: the engine with the stream-dispatch fan-out
+# --------------------------------------------------------------------------
+
+FANOUTS = ("kernel", "plain", "default")
+
+
+def dispatch_engines(reg, dev):
+    """Three engines alike but for stage 1: ``fanout_fn=make_fanout()``
+    (the dispatch kernel), ``make_fanout(use_kernel=False)`` (its plain
+    version on the card) and the default ``fanout_reference``; every
+    other kernel on in all three."""
+    from repro_torch.core import create_engine
+    from repro_torch.kernels.stream_dispatch.ops import make_fanout
+    fns = {"kernel": make_fanout(), "plain": make_fanout(use_kernel=False)}
+    return {k: create_engine(reg, device=dev, **(
+        {"fanout_fn": fns[k]} if k in fns else {})) for k in FANOUTS}
+
+
+def drive_steps(torch, eng, sources, n_steps, K, seed, superstep):
+    """``n_steps`` groups of K x batch posts to random sources (repeats
+    included, so bursts carry over), each followed by one superstep of K
+    rounds or by K eager rounds.  Returns every round's sink as host
+    arrays, the raw spools (supersteps only) and the wall seconds."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    B = eng.cfg.batch
+    sinks, spools = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(n_steps):
+        picks = rng.integers(0, len(sources), K * B)
+        vals = rng.standard_normal((K * B, 4)).astype(np.float32)
+        ts = s * 100 + rng.integers(0, 90, K * B)
+        for j, v, t in zip(picks, vals, ts):
+            eng.post(sources[j], v.tolist(), int(t))
+        if superstep:
+            spool = eng.superstep(K)
+            spools.append(tuple(spool))
+            sinks += [host_sink(x) for x in eng.spool_sinks(spool)]
+        else:
+            sinks += [tuple(eng.round()) for _ in range(K)]
+    torch.cuda.synchronize()
+    return sinks, spools, time.perf_counter() - t0
+
+
+def dispatch_run(torch, dev, tag, reg, path, counters, run, per_round):
+    """Build the three engines of :func:`dispatch_engines` on ``reg`` and
+    run ``run(engine) -> (sinks, spools, ms per round)`` on each, the kernel
+    engine last with every launch counter 0 just before it; the kernel
+    engine must equal the other two bitwise (every state leaf, stat, DLQ
+    entry, sink and spool) and ``stream_dispatch`` must have launched
+    ``per_round`` times per round.  Returns (kernel engine, its sinks,
+    launches, rounds)."""
+    engines = dispatch_engines(reg, dev)
+    for k, e in engines.items():
+        if e._path != path:
+            fail(f"{tag}: the {k} engine took the {e._path} path")
+    out = {}
+    for k in ("plain", "default", "kernel"):
+        if k == "kernel":
+            for c in counters:
+                c.launches = 0
+        out[k] = run(engines[k])
+    launches = {c.__name__: c.launches for c in counters}
+    sinks, spools, _ = out["kernel"]
+    rounds = len(sinks)
+    for k in ("plain", "default"):
+        if len(out[k][0]) != rounds:
+            fail(f"{tag}: {k} ran {len(out[k][0])} rounds, kernel {rounds}")
+        compare_engines(f"{tag} kernel vs {k}", engines["kernel"], sinks,
+                        engines[k], out[k][0])
+        for i, (x, y) in enumerate(zip(spools, out[k][1])):
+            compare(f"{tag} kernel vs {k} spool {i}", x, y)
+    n = launches["stream_dispatch_call"]
+    if n != per_round * rounds:
+        fail(f"{tag}: stream_dispatch launched {n} times in {rounds} rounds "
+             f"(want {per_round} a round)")
+    c = engines["kernel"].counters()
+    if c["emitted"] == 0:
+        fail(f"{tag}: the run emitted nothing")
+    per = ", ".join(f"{k} {out[k][2]}" for k in FANOUTS)
+    print(f"[dispatch] {tag}: {rounds} rounds, kernel fan-out bitwise equal "
+          f"to its plain version and to fanout_reference (every state "
+          f"leaf, stat, DLQ entry, sink" + (", spool" if spools else "")
+          + f"); launches {launches}; ms/round by fan-out (run in the "
+          f"order plain, default, kernel): {per}; "
+          f"processed={c['processed']} emitted={c['emitted']}", flush=True)
+    return engines["kernel"], sinks, launches, rounds
+
+
+def phase_dispatch(torch, dev, reg_staged, reg_fused, sources, counters,
+                   rounds=16, K=8, n_steps=2, heavy=16, staged_heavy=4):
+    """The engine with ``fanout_fn=make_fanout()`` on the paths that call
+    it: single-device staged rounds (phase 5's registry: the ``tanh``
+    composite forces the staged path); staged supersteps of K, their K
+    rounds under the sync debug mode and equal to K eager rounds; heavy
+    4-shard fused rounds (one ``stream_dispatch`` per shard against the
+    shard's out-table and the global timestamps, and one
+    ``onehot_gather`` of the by-sid value snapshot); a few heavy 4-shard
+    staged rounds.  Returns the launches of each path's kernel run and
+    the kernel engines of the single staged and 4-shard fused runs."""
+    B = reg_staged.cfg.batch
+
+    def rounds_run(n, seed, warm):
+        def run(e):
+            sinks, secs = drive(torch, e, sources, n, seed, B, warm)
+            return sinks, [], secs / (n - warm) * 1e3
+        return run
+
+    def steps_run(e):
+        guard_rounds(torch, e)
+        sinks, spools, secs = drive_steps(torch, e, sources, n_steps, K,
+                                          SEED + 22, True)
+        return sinks, spools, secs / (n_steps * K) * 1e3
+
+    out, kept = {}, {}
+    kept["single staged"], _, out["single staged"], _ = dispatch_run(
+        torch, dev, "single staged", reg_staged, "staged", counters,
+        rounds_run(rounds, SEED + 21, 4), 1)
+    e_step, s_step, launches, _ = dispatch_run(
+        torch, dev, f"single staged supersteps K={K}", reg_staged, "staged",
+        counters, steps_run, 1)
+    out[f"single staged supersteps K={K}"] = launches
+    e_round = dispatch_engines(reg_staged, dev)["kernel"]
+    s_round, _, _ = drive_steps(torch, e_round, sources, n_steps, K,
+                                SEED + 22, False)
+    compare_engines(f"dispatch supersteps vs eager rounds", e_step, s_step,
+                    e_round, s_round)
+    print(f"[dispatch] single staged supersteps K={K}: every round of the "
+          f"{n_steps} supersteps equal to {n_steps * K} eager rounds of the "
+          f"kernel fan-out engine", flush=True)
+    sharded = dict(n_shards=SHARDS, exchange_slots=0)
+    for tag, reg, path, n, warm, seed in [
+            (f"{SHARDS}-shard fused", reg_fused, "fused", heavy, 4,
+             SEED + 23),
+            (f"{SHARDS}-shard staged", reg_staged, "staged", staged_heavy, 0,
+             SEED + 24)]:
+        kept[tag], _, launches, n_rounds = dispatch_run(
+            torch, dev, f"{tag} heavy", copy_registry(reg, **sharded), path,
+            counters, rounds_run(n, seed, warm), SHARDS)
+        if launches["onehot_gather_call"] != n_rounds:
+            fail(f"{tag}: onehot_gather launched "
+                 f"{launches['onehot_gather_call']} times in {n_rounds} "
+                 f"rounds")
+        out[tag] = launches
+    return out, kept
+
+
+# --------------------------------------------------------------------------
+# phase 13: timings at the main path's shapes
 # --------------------------------------------------------------------------
 
 def pop_bytes(Q: int, B: int, C: int) -> int:
@@ -1201,30 +1465,27 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
     return rows_out
 
 
-def record_shard_kernels(torch, eng, sources):
-    """One more heavy round of ``eng`` with the arguments of its
-    ``apply_programs`` and ``exchange_compact`` launches recorded (at
-    their ``plan_*`` stage): the main path's inputs, for timing the
-    kernels alone."""
-    from repro_torch.kernels.round_fuse import kernel as K
-    rec = {}
-    orig = K.plan_apply_programs, K.plan_exchange_compact
+def record_plans(torch, eng, sources, module, names):
+    """One more heavy round of ``eng`` with the arguments of the first
+    call of each ``module.plan_<name>`` recorded: the main path's inputs,
+    for timing the kernels alone.  Returns ``{name: (args, kwargs)}``."""
+    rec, orig = {}, {n: getattr(module, f"plan_{n}") for n in names}
 
-    def rec_apply(*a):
-        rec["apply_programs"] = a
-        return orig[0](*a)
+    def recorder(name):
+        def plan(*a, **kw):
+            rec.setdefault(name, (a, kw))
+            return orig[name](*a, **kw)
+        return plan
 
-    def rec_exchange(*a):
-        rec["exchange_compact"] = a
-        return orig[1](*a)
-
-    K.plan_apply_programs, K.plan_exchange_compact = rec_apply, rec_exchange
+    for n in names:
+        setattr(module, f"plan_{n}", recorder(n))
     try:
         drive(torch, eng, sources, 1, SEED + 13, eng.cfg.batch)
     finally:
-        K.plan_apply_programs, K.plan_exchange_compact = orig
-    if len(rec) != 2:
-        fail(f"the sharded round did not reach both kernels: {list(rec)}")
+        for n in names:
+            setattr(module, f"plan_{n}", orig[n])
+    if len(rec) != len(names):
+        fail(f"the round did not reach every kernel of {names}: {list(rec)}")
     return rec
 
 
@@ -1280,7 +1541,9 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
                                                        plan_exchange_compact)
     from repro_torch.kernels.round_fuse.ops import (apply_programs,
                                                     exchange_compact)
-    rec = record_shard_kernels(torch, eng, sources)
+    from repro_torch.kernels.round_fuse import kernel as K
+    rec = {k: a for k, (a, _) in record_plans(
+        torch, eng, sources, K, ("apply_programs", "exchange_compact")).items()}
     rows = []
     xa = rec["exchange_compact"]
     D, E = xa[6], xa[7]
@@ -1332,6 +1595,98 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
           f"{plain} ms; bound {a_bound} ms ({a_by}; {a_bytes} bytes, {a_ops} "
           f"VM instructions); no single PyTorch call runs the bytecode VM, "
           f"so no library time", flush=True)
+    return rows
+
+
+def gather_bytes(ids, n_rows: int, F: int, ok=None) -> int:
+    """Bytes a row gather must move on these ids: each id once, each
+    distinct row read once (only ids in range and, where ``ok`` is given,
+    marked), each output element once."""
+    take = (ids >= 0) & (ids < n_rows)
+    if ok is not None:
+        take &= ok
+    rows = ids[take].unique().numel()
+    return ids.numel() * 4 + rows * F * 4 + ids.numel() * F * 4
+
+
+def launch_ms(launch, name: str):
+    """Device ms per call of ``launch`` (a kernel named ``name``; "" sums
+    every kernel the call runs).  CUDA events around 200 back-to-back
+    calls measure the host's enqueue rate once that is the slower of the
+    two, so then the profiler's device time is taken.  Returns (ms, event
+    ms, host enqueue ms, profiler ms, which of the two was taken)."""
+    ev, host = time_launches([launch], 200)
+    prof = profile_kernels([launch], [name])[name]
+    if prof is not None and host >= ev:
+        return prof, ev, host, prof, "profiler"
+    return ev, ev, host, prof, "events"
+
+
+def time_dispatch_kernels(torch, e_single, e_shard, sources, errs,
+                          launches):
+    """``stream_dispatch`` at the single staged round's shape and at the
+    4-shard round's, and ``onehot_gather`` at the 4-shard snapshot's
+    (inputs recorded from one round of phase 12's kernel engines), timed
+    alone beside their plain versions, bounds and ``torch.index_select``
+    of the same rows (the nearest single PyTorch call; it does no
+    masking).  Both kernels are far shorter than a launch from the host:
+    their times and the library call's are device times (``launch_ms``)."""
+    from repro_torch.kernels.stream_dispatch import kernel as K
+    from repro_torch.kernels.stream_dispatch.ops import (onehot_gather,
+                                                         stream_dispatch)
+    plan_sd, plan_og = K.plan_stream_dispatch, K.plan_onehot_gather
+
+    def report(tag, name, launch, plain_fn, lib_fn, n_bytes, what):
+        ms, ev, host, prof, src = launch_ms(launch, f"{name}_kernel")
+        lib, lib_ev, lib_host, _, lib_src = launch_ms(lib_fn, "")
+        plain = time_ms(plain_fn, reps=20)
+        bound, by = bound_ms(n_bytes, 0, 0.0)
+        print(f"[timing] {name} at {tag}: kernel {ms} ms ({src}; CUDA "
+              f"events over 200 back-to-back launches {ev} ms, host enqueue "
+              f"{host} ms per launch, profiler {prof} ms); plain {plain} "
+              f"ms; torch.index_select of the same rows {lib} ms "
+              f"({lib_src}; events {lib_ev} ms, host {lib_host} ms; no "
+              f"masking); bound {bound} ms ({by}; {n_bytes} bytes: {what})",
+              flush=True)
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/kernels/stream_dispatch/csrc/"
+                           "stream_dispatch.cu",
+                    launches=launches[f"{name}_call"],
+                    max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by, library_ms=lib)
+
+    rows = []
+    for tag, eng in (("single staged", e_single),
+                     (f"{SHARDS}-shard", e_shard)):
+        (a, kw), = record_plans(torch, eng, sources, K,
+                                ("stream_dispatch",)).values()
+        sid, ts, valid, out_table, tstab = a
+        n_tab, F = out_table.shape
+        idx = torch.clamp(sid, 0, n_tab - 1).long()
+        row = report(
+            f"the {tag} round's shape ({sid.shape[0]} events, {int(valid.sum())} "
+            f"valid, ({n_tab}, {F}) out-table, {tstab.shape[0]} timestamps, "
+            f"with_early={kw.get('with_early', True)})", "stream_dispatch",
+            plan_sd(*a, **kw)[0],
+            lambda: stream_dispatch(*a, **kw, use_kernel=False),
+            lambda: torch.index_select(out_table, 0, idx),
+            gather_bytes(sid, n_tab, F, valid) + sid.shape[0],
+            "sid and valid flag per event, the valid events' out-table "
+            "rows, the targets")
+        if not rows:
+            rows.append(dict(row, replaces="src/repro/kernels/"
+                             "stream_dispatch/ops.py:29"))
+    (a, _), = record_plans(torch, e_shard, sources, K,
+                           ("onehot_gather",)).values()
+    table, ids = a
+    idx = ids.long()
+    rows.append(dict(report(
+        f"the {SHARDS}-shard snapshot's shape ({tuple(table.shape)} "
+        f"{table.dtype} table, {ids.shape[0]} ids)", "onehot_gather",
+        plan_og(*a)[0], lambda: onehot_gather(*a, use_kernel=False),
+        lambda: torch.index_select(table, 0, idx),
+        gather_bytes(ids, *table.shape), "the ids, the rows, the output"),
+        replaces="src/repro/kernels/stream_dispatch/kernel.py:41"))
     return rows
 
 
@@ -1427,6 +1782,8 @@ def main() -> None:
                                                        exchange_compact_call,
                                                        fused_round_call)
     from repro_torch.kernels.sched_pop.kernel import sched_pop_call
+    from repro_torch.kernels.stream_dispatch.kernel import (
+        onehot_gather_call, stream_dispatch_call)
     from repro_torch.kernels.window_agg.kernel import window_agg_call
 
     dev = torch.device("cuda", 0)
@@ -1454,6 +1811,7 @@ def main() -> None:
     cfg = EngineConfig(n_streams=4096).validate()
     errs = phase_kernels(torch, dev, cfg)
     errs.update(phase_shard_kernels(torch, dev, cfg, SHARDS))
+    errs.update(phase_dispatch_kernels(torch, dev, cfg, SHARDS))
 
     # ---- 3. fused main path at full width ------------------------------
     import numpy as np
@@ -1464,7 +1822,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     reg_fused = copy_registry(reg)          # before phase 5 adds tanh
     counters = (fused_round_call, sched_pop_call, window_agg_call,
-                apply_programs_call, exchange_compact_call)
+                apply_programs_call, exchange_compact_call,
+                stream_dispatch_call, onehot_gather_call)
     eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 48,
                                      8, fused_round_call, counters)
 
@@ -1505,13 +1864,26 @@ def main() -> None:
     phase_shard_suite(torch, dev, counters)
     phase_suite(torch, dev, counters, n_shards=SHARDS)
 
-    # ---- 12. timings -----------------------------------------------------
+    # ---- 12. the engine with the stream-dispatch fan-out, kernel against
+    #          plain and against fanout_reference --------------------------
+    t0 = time.perf_counter()
+    d_launches, d_engines = phase_dispatch(torch, dev, reg, reg_fused,
+                                           sources, counters)
+    print(f"[dispatch] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- 13. timings -----------------------------------------------------
     rows = phase_timings(torch, eng, errs, {"sched_pop": sp_launches,
                                             "fused_round": fr_launches},
                          dep_cycles, clock_hz)
     rows.append(time_window_agg(torch, suite, errs,
                                 suite_launches["window_agg_call"]))
     rows += time_shard_kernels(torch, e_sh, sources, errs, sh_launches)
+    rows += time_dispatch_kernels(
+        torch, d_engines["single staged"], d_engines[f"{SHARDS}-shard fused"],
+        sources, errs, {k: sum(run[k] for run in d_launches.values())
+                        for k in ("stream_dispatch_call",
+                                  "onehot_gather_call")})
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

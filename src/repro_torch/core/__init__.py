@@ -7,6 +7,7 @@ from repro_torch.core.engine import (DLQ_REASONS, DeadLetter, DeviceTables,
                                      SinkBatch, SinkSpool, StreamEngine,
                                      create_engine, engine_from_snapshot,
                                      init_state, make_step, make_superstep)
+from repro_torch.core.graph import PipelineGraph
 from repro_torch.core.registry import Registry, Stream, Tenant
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "DeviceTables", "EngineState", "IngestBatch", "SinkBatch",
     "IngestRing", "SinkSpool", "init_state", "make_step", "make_superstep",
     "create_engine", "engine_from_snapshot", "DeadLetter", "DLQ_REASONS",
+    "PipelineGraph",
 ]

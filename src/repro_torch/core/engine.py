@@ -625,13 +625,25 @@ def fault_phase(state: EngineState, stats: Dict[str, torch.Tensor],
 # stages 1-3 of the staged round
 # --------------------------------------------------------------------------
 
-def fanout_reference(sid, pvalid, out_table) -> torch.Tensor:
-    """Stage 1: expand each event to its subscribers — targets (B, F), -1
-    where there is none or the event is not valid.  (The JAX package's
-    optional early stale mask is not ported: the round applies that check
-    in ``process_work_items``' keep mask.)"""
+def fanout_reference(sid, ts, pvalid, out_table, timestamps, *,
+                     with_early: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Stage 1: expand each event to its subscribers.  sid/ts/pvalid:
+    (B,); out_table: (n_tab, F) int32 (-1 pad); timestamps: (N,) int32.
+    Returns targets (B, F), -1 where there is none or the event is not
+    valid, and the early-keep mask (B, F) — ``ts`` newer than the
+    target's last emission — or ``None`` in its place with
+    ``with_early=False``: the round asks for that, since it applies the
+    same check in ``process_work_items``' keep mask.  Any function of
+    this signature can be passed to the round builders as ``fanout_fn``
+    (e.g. ``kernels.stream_dispatch.ops.make_fanout()``)."""
     targets = _take(out_table, torch.clamp(sid, 0, out_table.shape[0] - 1))
-    return torch.where((targets >= 0) & pvalid[:, None], targets, -1)
+    tvalid = (targets >= 0) & pvalid[:, None]
+    out = torch.where(tvalid, targets, -1)
+    if not with_early:
+        return out, None
+    t_safe = torch.clamp(targets, 0, timestamps.shape[0] - 1)
+    return out, tvalid & (ts[:, None] > timestamps[t_safe.long()])
 
 
 def process_work_items(cfg: EngineConfig, tables: DeviceTables, rows, t_sid,
@@ -663,18 +675,22 @@ def process_work_items(cfg: EngineConfig, tables: DeviceTables, rows, t_sid,
 # the step
 # --------------------------------------------------------------------------
 
-def make_step(cfg: EngineConfig, fused: Optional[bool] = None,
+def make_step(cfg: EngineConfig, fanout_fn: Callable = fanout_reference,
+              fused: Optional[bool] = None,
               use_kernel: Optional[bool] = None) -> Callable:
     """Build the engine round ``step(tables, state, ingest) -> (state,
     sink)``.  ``fused`` (default ``cfg.fused_round``) runs stages 1-3 as
     one :func:`~repro_torch.kernels.round_fuse.ops.fused_stages`
-    operation; otherwise the staged pop / fan-out / ``process_work_items``
-    sequence.  Bit-identical for fusable programs; the fused pop is the
-    packed scheduler, so ``scheduler="lexsort"`` always takes the staged
-    path.  ``use_kernel`` is passed to the kernel wrappers (``None``:
-    follow the tensors' device; ``False``: the plain versions on any
-    device, which ``chip_smoke.py`` installs on an engine to compare the
-    kernels with on the card)."""
+    operation; otherwise the staged pop / ``fanout_fn`` /
+    ``process_work_items`` sequence.  Bit-identical for fusable programs;
+    the fused pop is the packed scheduler, so ``scheduler="lexsort"``
+    always takes the staged path.  ``fanout_fn`` (stage 1, signature of
+    :func:`fanout_reference`) runs on the staged path only: the fused
+    operation does its own fan-out, as in the JAX package.
+    ``use_kernel`` is passed to the kernel wrappers (``None``: follow the
+    tensors' device; ``False``: the plain versions on any device, which
+    ``chip_smoke.py`` installs on an engine to compare the kernels with
+    on the card)."""
     N, F = cfg.n_streams, cfg.max_out
     B, W, T = cfg.batch, cfg.work, cfg.n_tenants
     if fused is None:
@@ -781,7 +797,11 @@ def make_step(cfg: EngineConfig, fused: Optional[bool] = None,
                                                 e_vals, e_ts, e_its, e_pop)
         e_valid = e_pop & e_real & ~state.quarantined[e_row.long()]
         # ---- stage 1: subscriber dispatching ----------------------------
-        wi_t = fanout_reference(e_sid, e_valid, tables.out_table).reshape(W)
+        # process_work_items' keep mask applies the stale check, so the
+        # fan-out is asked for targets only
+        targets, _ = fanout_fn(e_sid, e_ts, e_valid, tables.out_table,
+                               state.timestamps, with_early=False)
+        wi_t = targets.reshape(W)
         wi_valid = (wi_t >= 0) & torch.repeat_interleave(e_valid, F)
         wi_src = torch.repeat_interleave(e_sid, F)
         wi_vals = torch.repeat_interleave(e_vals, F, dim=0)
@@ -966,7 +986,9 @@ def spool_round(state: EngineState, spool: SinkSpool, sink: SinkBatch, k: int,
     return state, spool
 
 
-def make_superstep(cfg: EngineConfig, K: int, fused: Optional[bool] = None,
+def make_superstep(cfg: EngineConfig, K: int,
+                   fanout_fn: Callable = fanout_reference,
+                   fused: Optional[bool] = None,
                    use_kernel: Optional[bool] = None) -> Callable:
     """K engine rounds as one call: ``superstep(tables, state, ring) ->
     (state, spool, ring)``.
@@ -978,7 +1000,7 @@ def make_superstep(cfg: EngineConfig, K: int, fused: Optional[bool] = None,
     are arguments, so admission edits applied *between* supersteps need
     no new closure."""
     assert K >= 1
-    step = make_step(cfg, fused=fused, use_kernel=use_kernel)
+    step = make_step(cfg, fanout_fn, fused=fused, use_kernel=use_kernel)
     B, C = cfg.batch, cfg.channels
     P = cfg.spool_slots(K)
 
@@ -1016,12 +1038,14 @@ class StreamEngine:
     layout hooks."""
 
     def __init__(self, registry: Registry, *, device="cuda",
+                 fanout_fn: Callable = fanout_reference,
                  priority: Optional[np.ndarray] = None,
                  use_kernel: Optional[bool] = None):
         self.device = resolve_device(device)
         self.cfg = registry.cfg
         self.registry = registry
         self.use_kernel = use_kernel
+        self._fanout_fn = fanout_fn
         # per path: (round closure, {K: superstep closure})
         self._fns: Dict[str, Tuple[Callable, Dict[int, Callable]]] = {}
         self._init_layout(priority)
@@ -1327,10 +1351,11 @@ class StreamEngine:
     def _make_step(self, fused: bool) -> Callable:
         """The round closure of one path (the sharded engine overrides
         this and :meth:`_make_superstep`)."""
-        return make_step(self.cfg, fused=fused, use_kernel=self.use_kernel)
+        return make_step(self.cfg, self._fanout_fn, fused=fused,
+                         use_kernel=self.use_kernel)
 
     def _make_superstep(self, K: int, fused: bool) -> Callable:
-        return make_superstep(self.cfg, K, fused=fused,
+        return make_superstep(self.cfg, K, self._fanout_fn, fused=fused,
                               use_kernel=self.use_kernel)
 
     def _refresh_fusable(self) -> None:

@@ -17,15 +17,17 @@ sharded == single-device bitwise whenever no bucket overflows
 The shards are emulated on one device: every per-shard table and state
 leaf carries a leading ``(n_shards,)`` axis (the layout of the JAX
 package's sharded arrays read back with ``np.asarray``), the JAX
-package's ``all_gather`` of values and timestamps becomes a view
-``values.reshape(S * n_local, C)[sid_to_flat]``, and its two
+package's ``all_gather`` of values and timestamps becomes a gather of
+the stacked rows by ``sid_to_flat`` (the values through the
+``onehot_gather`` kernel), and its two
 ``all_to_all`` calls become a transpose of the ``(S, S, E, ...)`` buckets
 across the sending-shard axis.  The round is cut at those collectives:
 
     phase 0 + pop      every shard (the snapshot follows every ingest)
-    snapshot           a view of the stacked values
-    stage 1 + compact  every shard; one ``exchange_compact`` launch
-                       serves all senders
+    snapshot           a gather of the stacked values (one
+                       ``onehot_gather`` launch) and timestamps
+    stage 1 + compact  every shard's ``fanout_fn``; one
+                       ``exchange_compact`` launch serves all senders
     exchange           a transpose
     stages 2-4 + fault every shard; on the fused path one
                        ``apply_programs`` launch serves all shards
@@ -37,7 +39,7 @@ edits tables, state and the replicated lookup maps in place.
 from __future__ import annotations
 
 import bisect
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +56,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.registry import EngineTables
 from repro_torch.kernels.round_fuse import ref as rf_ref
 from repro_torch.kernels.round_fuse.ops import apply_programs, exchange_compact
+from repro_torch.kernels.stream_dispatch.ops import onehot_gather
 
 _DURABILITY = "the durability plane (ROADMAP.md, queue 1, item 7)"
 _ELASTIC = "the elastic plane (ROADMAP.md, queue 1, item 10)"
@@ -251,6 +254,7 @@ def _stack(parts: list):
 # --------------------------------------------------------------------------
 
 def make_shard_round(cfg: EngineConfig, n_shards: int, n_local: int,
+                     fanout_fn: Callable = fanout_reference,
                      fused: Optional[bool] = None,
                      use_kernel: Optional[bool] = None):
     """The sharded round body shared by the sharded step and superstep:
@@ -266,11 +270,14 @@ def make_shard_round(cfg: EngineConfig, n_shards: int, n_local: int,
     stream's tenant and dead-lettered; ``exchange_slots=0`` sizes the
     buckets so overflow is impossible.
 
-    The compaction is one ``exchange_compact`` for all senders on both
-    paths.  ``fused`` (default ``cfg.fused_round``, packed scheduler
-    only) runs the post-exchange fetch+VM+window gate as one
-    ``apply_programs`` for all shards; otherwise ``process_work_items``,
-    shard by shard.  Bit-identical for fusable programs (the engine
+    Stage 1 is ``fanout_fn`` (signature of
+    :func:`~repro_torch.core.engine.fanout_reference`) once per shard on
+    both paths, against the shard's out-table and the global by-sid
+    timestamps.  The compaction is one ``exchange_compact`` for all
+    senders on both paths.  ``fused`` (default ``cfg.fused_round``,
+    packed scheduler only) runs the post-exchange fetch+VM+window gate as
+    one ``apply_programs`` for all shards; otherwise
+    ``process_work_items``, shard by shard.  Bit-identical for fusable programs (the engine
     checks)."""
     S, L = n_shards, n_local
     N, C, F, T = cfg.n_streams, cfg.channels, cfg.max_out, cfg.n_tenants
@@ -323,18 +330,19 @@ def make_shard_round(cfg: EngineConfig, n_shards: int, n_local: int,
             events[d] = (e_sid, e_vals, e_ts, e_its, e_loc, e_valid)
 
         # ---- post-ingest snapshot: the global by-sid view ----------------
-        flat = gmap.sid_to_flat.long()
-        values_by_sid = torch.stack([s.values for s in states]) \
-            .reshape(S * L, C)[flat]
+        values_by_sid = onehot_gather(
+            torch.stack([s.values for s in states]).reshape(S * L, C),
+            gmap.sid_to_flat, use_kernel=use_kernel)
         ts_by_sid = torch.stack([s.timestamps for s in states]) \
-            .reshape(S * L)[flat]
+            .reshape(S * L)[gmap.sid_to_flat.long()]
 
         # ---- stage 1: fan-out via the shard-local out-tables -------------
         items = []
         for d in range(S):
             e_sid, e_vals, e_ts, e_its, e_loc, e_valid = events[d]
-            wi_t = fanout_reference(e_loc, e_valid,
-                                    tabs[d].out_table).reshape(W)
+            targets, _ = fanout_fn(e_loc, e_ts, e_valid, tabs[d].out_table,
+                                   ts_by_sid, with_early=False)
+            wi_t = targets.reshape(W)
             wi_valid = (wi_t >= 0) & torch.repeat_interleave(e_valid, F)
             t_safe = torch.clamp(wi_t, 0, N - 1).long()
             dest = torch.where(wi_valid, gmap.sid_to_shard[t_safe], S)
@@ -422,14 +430,15 @@ def make_shard_round(cfg: EngineConfig, n_shards: int, n_local: int,
 
 
 def make_sharded_step(cfg: EngineConfig, n_shards: int, n_local: int,
+                      fanout_fn: Callable = fanout_reference,
                       fused: Optional[bool] = None,
                       use_kernel: Optional[bool] = None):
     """The sharded round ``step(tables, gmap, state, ingest) -> (state,
     sink)``: every tables/state/ingest/sink leaf carries a leading
     ``(n_shards,)`` axis, ``gmap`` is shared.  Body and exchange semantics:
     :func:`make_shard_round`."""
-    shard_round = make_shard_round(cfg, n_shards, n_local, fused,
-                                   use_kernel)
+    shard_round = make_shard_round(cfg, n_shards, n_local, fanout_fn,
+                                   fused, use_kernel)
 
     def step(tables: DeviceTables, gmap: GlobalMaps, state: EngineState,
              ingest: IngestBatch) -> Tuple[EngineState, SinkBatch]:
@@ -441,7 +450,8 @@ def make_sharded_step(cfg: EngineConfig, n_shards: int, n_local: int,
 
 
 def make_sharded_superstep(cfg: EngineConfig, n_shards: int, n_local: int,
-                           K: int, fused: Optional[bool] = None,
+                           K: int, fanout_fn: Callable = fanout_reference,
+                           fused: Optional[bool] = None,
                            use_kernel: Optional[bool] = None):
     """K sharded rounds as one call: ``superstep(tables, gmap, state, ring)
     -> (state, spool, ring)`` with per-shard leading axes on everything but
@@ -452,7 +462,7 @@ def make_sharded_superstep(cfg: EngineConfig, n_shards: int, n_local: int,
     a value back to the host."""
     assert K >= 1
     S, L = n_shards, n_local
-    shard_round = make_shard_round(cfg, S, L, fused, use_kernel)
+    shard_round = make_shard_round(cfg, S, L, fanout_fn, fused, use_kernel)
     B, C, P = cfg.batch, cfg.channels, cfg.spool_slots(K)
 
     def superstep(tables: DeviceTables, gmap: GlobalMaps, state: EngineState,
@@ -506,12 +516,13 @@ class ShardedStreamEngine(StreamEngine):
 
     def _make_step(self, fused: bool):
         return make_sharded_step(self.cfg, self.plan.n_shards,
-                                 self.plan.n_local, fused, self.use_kernel)
+                                 self.plan.n_local, self._fanout_fn, fused,
+                                 self.use_kernel)
 
     def _make_superstep(self, K: int, fused: bool):
         return make_sharded_superstep(self.cfg, self.plan.n_shards,
-                                      self.plan.n_local, K, fused,
-                                      self.use_kernel)
+                                      self.plan.n_local, K, self._fanout_fn,
+                                      fused, self.use_kernel)
 
     def _init_slots(self) -> None:
         """(Re)build the per-shard slot bookkeeping from the registry:

@@ -344,3 +344,92 @@ def test_sharded_engine_on_the_card_equals_the_cpu(dev, fused):
             else:
                 _assert_bits(getattr(eg.state, f), getattr(ec.state, f))
     assert ptrs() == before
+
+
+@pytest.mark.parametrize("N,F,M", [(64, 4, 16), (300, 7, 33), (4096, 4, 4096),
+                                   (4096, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_onehot_gather_kernel_matches_plain(dev, N, F, M, dtype):
+    from repro_torch.kernels.stream_dispatch.kernel import onehot_gather_call
+    from repro_torch.kernels.stream_dispatch.ops import onehot_gather
+    rng = np.random.default_rng(N + F + M)
+    if dtype == torch.int32:
+        table = rng.integers(-2**31, 2**31 - 1, (N, F)).astype(np.int32)
+    else:
+        table = rng.standard_normal((N, F)).astype(np.float32)
+        table.reshape(-1)[rng.integers(0, table.size, 7)] = np.array(
+            [0x80000000, 0x00000001, 0x7fc12345, 0xffa00001, 0x7f800000,
+             0xff800000, 0x807fffff], np.uint32).view(np.float32)
+    ids = rng.integers(-2, N + 2, M).astype(np.int32)
+    t, i = torch.from_numpy(table).to(dev), torch.from_numpy(ids).to(dev)
+    before = onehot_gather_call.launches
+    got = onehot_gather_call(t, i)
+    assert onehot_gather_call.launches == before + 1
+    _assert_bits(got, onehot_gather(t, i, use_kernel=False))
+
+
+@pytest.mark.parametrize("n_tab,N,F,B", [(64, 64, 4, 16), (1024, 4096, 16, 64),
+                                         (300, 97, 3, 20)])
+@pytest.mark.parametrize("with_early", [True, False])
+def test_stream_dispatch_kernel_matches_plain(dev, n_tab, N, F, B,
+                                              with_early):
+    from repro_torch.kernels.stream_dispatch.kernel import \
+        stream_dispatch_call
+    from repro_torch.kernels.stream_dispatch.ops import stream_dispatch
+    rng = np.random.default_rng(n_tab + N + B)
+    sid = rng.integers(-3, n_tab + 3, B).astype(np.int32)
+    valid = rng.random(B) < 0.8
+    ts = rng.integers(-2**31, 2**31 - 1, B).astype(np.int32)
+    ts[:2] = (-2**31, 2**31 - 1)
+    out_table = rng.integers(-5, N + 6, (n_tab, F)).astype(np.int32)
+    tstab = rng.integers(-2**31, 2**31 - 1, N).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (sid, ts, valid, out_table, tstab)]
+    before = stream_dispatch_call.launches
+    got = stream_dispatch_call(*args, with_early=with_early)
+    assert stream_dispatch_call.launches == before + 1
+    want = stream_dispatch(*args, with_early=with_early, use_kernel=False)
+    _assert_bits(got[0], want[0])
+    if with_early:
+        _assert_bits(got[1], want[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+@pytest.mark.parametrize("D,fused", [(1, False), (2, True)])
+def test_dispatch_fanout_engine_on_the_card_equals_the_cpu(dev, D, fused):
+    """An engine with ``fanout_fn=make_fanout()`` on the card (the
+    dispatch kernel) and on the CPU (its plain version): every sink and
+    state leaf bit for bit, one launch per round and shard."""
+    from repro_torch.kernels.stream_dispatch.kernel import \
+        stream_dispatch_call
+    from repro_torch.kernels.stream_dispatch.ops import make_fanout
+    engines = []
+    for device in (dev, "cpu"):
+        cfg = EngineConfig(n_streams=24, n_tenants=4, batch=8, queue=64,
+                           max_in=4, max_out=4, prog_len=24, n_temps=12,
+                           n_shards=D, fused_round=fused)
+        reg = Registry.with_capacity(cfg)
+        t = reg.create_tenant("t")
+        srcs = [reg.create_stream(t, f"s{i}", ["v"]) for i in range(6)]
+        for i in range(4):
+            reg.create_composite(t, f"c{i}", ["v"], srcs[i:i + 3],
+                                 {"v": "in0.v + in1.v * 2 + in2.v"})
+        engines.append((create_engine(reg, device=device,
+                                      fanout_fn=make_fanout()), srcs))
+    (eg, srcs), (ec, _) = engines
+    rng = np.random.default_rng(D)
+    before = stream_dispatch_call.launches
+    for r in range(6):
+        for i in rng.choice(6, 4, replace=False):
+            v, ts = float(rng.standard_normal()), r * 4 + int(i) % 3
+            eg.post(srcs[i], [v], ts)
+            ec.post(srcs[i], [v], ts)
+        _assert_bits(tuple(eg.round()), tuple(ec.round()))
+    assert stream_dispatch_call.launches == before + 6 * D
+    for f in eg.state._fields:
+        if f == "stats":
+            for k in eg.state.stats:
+                _assert_bits(eg.state.stats[k], ec.state.stats[k])
+        else:
+            _assert_bits(getattr(eg.state, f), getattr(ec.state, f))

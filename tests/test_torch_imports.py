@@ -32,6 +32,10 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.kernels.round_fuse.ops",
               "repro_torch.kernels.window_agg.ops",
               "repro_torch.kernels.window_agg.kernel",
+              "repro_torch.core.graph",
+              "repro_torch.kernels.stream_dispatch.ref",
+              "repro_torch.kernels.stream_dispatch.ops",
+              "repro_torch.kernels.stream_dispatch.kernel",
               "repro_torch.workloads.dataflows",
               "repro_torch.workloads.runner",
               "repro_torch.workloads.traces"):
