@@ -98,6 +98,37 @@ Phases, each printed on its own line:
     dispatch kernels ``torch.index_select`` of the same rows is timed as
     the nearest library call.
 
+14. The model plane's two kernels against their plain versions:
+    ``flash_attention`` on the sweep of ``tests/test_kernels.py`` and odd
+    lengths and widths (as transposed views of (B, H, L, Dh) tensors),
+    within 2e-5 in float32 and 2e-2 in bf16, and at the slice's
+    full-width layers in the model's (B, L, H, Dh) layout (gemma3-1b's
+    local and global, jamba's), within 2e-5 in float32 and one bf16 unit
+    in the last place (2^-7 of |plain| + 1e-5) in bf16;
+    ``selective_scan`` on its sweep, odd shapes and jamba's Mamba layer
+    (B 1, L 4096, Di 8192, S 16), within 1e-4.
+15-16. ``make_prefill_step`` (``repro_torch.models``) of gemma3-1b at its
+    published size (26 layers, B 2) and of jamba-v0.1-52b at full width
+    and one period of 8 of its 32 layers (B 1; all 32 exceed the card's
+    memory), prompts of 4,096 tokens drawn from the seed, weights from a
+    seeded generator on the card, in bf16: once through the kernels (its
+    launches must equal the attention and Mamba layers: 26 and 0; 1 and
+    7) and once through their plain versions, the last position's logits
+    and every cache leaf within 0.1 of the leaf's max |plain|; ms per
+    prefill, prompt tokens/s, peak memory.  The plain pass routes each
+    token to the experts the kernel pass chose (``RouteReplay``), so the
+    bf16 gate reads the kernels' arithmetic and not a router flipped by
+    a last-bit difference; the tokens whose own choice differed are
+    counted and printed.  The bf16 comparison runs twice for each of
+    three seeds (weights and prompts).  Then the first seed's weights
+    upcast to float32, kernels against plain (routing not replayed)
+    within 1e-4 of each leaf's max.
+17. Both model kernels timed at the slice's shapes (CUDA events and the
+    profiler's device time) beside their plain versions, their bounds
+    (attention's operations at the bf16 tensor-core peak, the scan's
+    bytes) and, for attention, ``scaled_dot_product_attention``; also
+    attention's float32 time at jamba's layer.
+
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero before them.
@@ -1748,6 +1779,460 @@ def time_window_agg(torch, suite, errs, launches):
 
 
 # --------------------------------------------------------------------------
+# phases 14-17: the model plane's prefill (gemma3-1b, jamba-v0.1-52b)
+# --------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16 (data sheet)
+PROMPT = 4096                # prompt tokens per sequence
+# (arch, layers kept, batch): gemma3-1b at its published depth; jamba at
+# one period of its 32 layers (8 layers with every layer kind: Mamba,
+# attention, dense and MoE MLPs) because the 32 layers' 52 B parameters
+# (~104 GB in bf16) exceed the card's 80 GB; widths as published
+PREFILL_MODELS = (("gemma3-1b", None, 2), ("jamba-v0.1-52b", 8, 1))
+PREFILL_SEEDS = (SEED, SEED + 1, SEED + 2)   # weights and prompts, bf16 gate
+FA_SWEEP = ((1, 2, 2, 128, 64, None), (2, 4, 2, 256, 128, None),
+            (1, 4, 1, 256, 64, 64), (2, 2, 2, 128, 32, 32),
+            (1, 8, 4, 128, 64, None),             # tests/test_kernels.py:80
+            (2, 4, 1, 77, 256, 13), (1, 3, 1, 1, 16, None),
+            (1, 4, 2, 200, 24, None))             # odd lengths and widths
+FA_FULL = (("gemma3-1b local", 2, 4, 1, PROMPT, 256, 512),
+           ("gemma3-1b global", 2, 4, 1, PROMPT, 256, None),
+           ("jamba-v0.1-52b", 1, 32, 8, PROMPT, 128, None))
+SCAN_SWEEP = ((1, 16, 32, 8), (2, 64, 128, 16), (1, 128, 256, 16),  # :103
+              (2, 37, 40, 4), (1, 300, 96, 32),  # odd lengths, other S
+              (1, PROMPT, 8192, 16))             # jamba's Mamba layer
+
+
+def close_or_fail(name, got, want, tol, atol=None) -> float:
+    """Fail unless ``got`` is finite and within ``atol`` + ``tol`` *
+    |want| of ``want`` (``atol`` = ``tol`` unless given, as
+    ``tests/test_kernels.py``); return the max absolute difference."""
+    import torch
+    atol = tol if atol is None else atol
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        fail(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
+             "non-finite output")
+    d = (g - w).abs()
+    bad = int((d > atol + tol * w.abs()).sum())
+    if bad:
+        fail(f"{name}: {bad} of {d.numel()} elements differ from the plain "
+             f"version by more than {atol} + {tol} |plain| (max |diff| "
+             f"{d.max().item()})")
+    return d.max().item()
+
+
+def fa_inputs(torch, gen, B, H, KV, L, Dh, dtype, transposed=False):
+    """(B, L, H, Dh) q and (B, L, KV, Dh) k, v ~ N(0, 1); ``transposed``
+    makes them transposed views of (B, H, L, Dh) and (B, KV, L, Dh)
+    tensors, the layout of the JAX kernel and its tests."""
+    shapes = (((B, H, L, Dh), (B, KV, L, Dh)) if transposed
+              else ((B, L, H, Dh), (B, L, KV, Dh)))
+    out = [torch.randn(sh, generator=gen, device=gen.device).to(dtype)
+           for sh in (shapes[0], shapes[1], shapes[1])]
+    return [t.transpose(1, 2) for t in out] if transposed else out
+
+
+def scan_inputs(torch, gen, B, L, Di, S):
+    """a = exp(-|N|) in (0, 1] as a discretised decay, bx, c, h0 ~ N."""
+    dev = gen.device
+    a = torch.randn((B, L, Di, S), generator=gen, device=dev).abs_().neg_().exp_()
+    return [a] + [torch.randn(sh, generator=gen, device=dev)
+                  for sh in ((B, L, Di, S), (B, L, S), (B, Di, S))]
+
+
+def phase_model_kernels(torch, dev):
+    """Both model kernels against their plain versions on the card:
+    attention at the sweep of tests/test_kernels.py and odd shapes
+    (transposed views; float32 2e-5, bf16 2e-2) and at the slice's
+    full-width layers (the model's layout; float32 2e-5, bf16 one unit in
+    the last place: 2^-7 |plain| + 1e-5); the scan at its sweep, odd
+    shapes and jamba's layer (1e-4)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = {"flash_attention": 0.0, "selective_scan": 0.0}
+    cases = [(f"sweep {c}", True, *c) for c in FA_SWEEP] + \
+        [(tag, False, *c) for tag, *c in FA_FULL]
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for tag, transposed, B, H, KV, L, Dh, win in cases:
+            q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, dtype,
+                                transposed)
+            got = flash_attention_blhd(q, k, v, window=win)
+            torch.cuda.synchronize()
+            want = flash_attention_blhd(q, k, v, window=win,
+                                        use_kernel=False)
+            if got.dtype != dtype:
+                fail(f"flash_attention {tag}: {got.dtype} out for {dtype} in")
+            tol, atol = ((2 ** -7, 1e-5) if bf16 and not transposed else
+                         (2e-2 if bf16 else 2e-5, None))
+            errs["flash_attention"] = max(errs["flash_attention"], close_or_fail(
+                f"flash_attention {tag} {dtype}", got, want, tol, atol))
+        print(f"[model kernels] flash_attention == plain in {dtype} on "
+              f"{len(FA_SWEEP)} shapes of the tests/test_kernels.py sweep "
+              f"and odd lengths and widths (transposed views) within "
+              f"{2e-2 if bf16 else 2e-5}, and at full width "
+              f"({', '.join(t for t, *_ in FA_FULL)}; the model's layout) "
+              f"within {'2^-7 |plain| + 1e-5' if bf16 else 2e-5}; max "
+              f"|diff| so far {errs['flash_attention']}", flush=True)
+    for B, L, Di, S in SCAN_SWEEP:
+        args = scan_inputs(torch, gen, B, L, Di, S)
+        y, h = selective_scan(*args)
+        torch.cuda.synchronize()
+        wy, wh = selective_scan(*args, use_kernel=False)
+        errs["selective_scan"] = max(
+            errs["selective_scan"],
+            close_or_fail(f"selective_scan y {(B, L, Di, S)}", y, wy, 1e-4),
+            close_or_fail(f"selective_scan h {(B, L, Di, S)}", h, wh, 1e-4))
+        del args, y, h, wy, wh
+    print(f"[model kernels] selective_scan == plain within 1e-4 on "
+          f"{len(SCAN_SWEEP)} shapes (B, L, Di, S) {list(SCAN_SWEEP)}; max "
+          f"|diff| {errs['selective_scan']}", flush=True)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def leaves(tree, prefix=""):
+    """(path, tensor) for every leaf of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def worst_leaf(name, got, want):
+    """Fail on a non-finite leaf; return (max over leaves of
+    max |got - want| / max |want|, that leaf's path)."""
+    import torch
+    worst = (0.0, "")
+    for (path, g), (_, w) in zip(leaves(got), leaves(want)):
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not (bool(torch.isfinite(g).all())
+                                      and bool(torch.isfinite(w).all())):
+            fail(f"{name} {path}: shapes {tuple(g.shape)}/{tuple(w.shape)} "
+                 "or non-finite values")
+        r = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (r, path))
+    return worst
+
+
+def timed_prefill(torch, step, params, batch, reps):
+    """``reps`` synchronised prefills after the one already run: (ms per
+    prefill on the host clock, peak device bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(params, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, \
+        torch.cuda.max_memory_allocated()
+
+
+class RouteReplay:
+    """Stands in for ``repro_torch.models.moe.topk_route`` while it is
+    installed (``with``).  In mode "record" every call keeps the experts
+    it chose.  In "replay", call i routes to the experts recorded at call
+    i, with gates from this pass's own router probabilities at them; in
+    "count" it keeps its own choice.  Both count the tokens whose own
+    choice (the experts or their order) differs from the recorded one.
+    Mode None passes through."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.topk_route
+        self.mode, self.recorded = None, []
+        self.calls = self.flips = self.tokens = 0
+
+    def __enter__(self):
+        self.moe.topk_route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.topk_route = self.route
+
+    def start(self, mode):
+        if mode == "record":
+            self.recorded = []
+        self.mode = mode
+        self.calls = self.flips = self.tokens = 0
+
+    def __call__(self, logits, k, renorm):
+        import torch
+        gates, idx, probs = self.route(logits, k, renorm)
+        if self.mode == "record":
+            self.recorded.append(idx)
+        elif self.mode in ("replay", "count"):
+            kept = self.recorded[self.calls]
+            self.calls += 1
+            self.flips += int((idx != kept).any(-1).sum())
+            self.tokens += idx[..., 0].numel()
+            if self.mode == "replay":
+                idx, gates = kept, probs.gather(-1, kept)
+                if renorm:      # as topk_route renormalises its gates
+                    gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                                min=1e-9)
+        return gates, idx, probs
+
+    def paired(self, step_k, step_p, params, batch, mode):
+        """The kernel pass recording its routing, then the plain pass in
+        ``mode``; returns both outputs and the tokens routed otherwise."""
+        self.start("record")
+        out_k = step_k(params, batch)
+        self.start(mode)
+        out_p = step_p(params, batch)
+        if self.calls != len(self.recorded):
+            fail(f"the plain pass routed {self.calls} times, the kernel "
+                 f"pass {len(self.recorded)}")
+        flips = f"{self.flips} of {self.tokens} tokens"
+        self.start(None)
+        return out_k, out_p, flips
+
+
+def prefill_inputs(torch, dev, cfg, B, seed):
+    """Weights (drawn on the card from ``seed``, cast as ``cast_params``
+    casts them) and a batch of B prompts of PROMPT tokens from ``seed``."""
+    import numpy as np
+    from repro_torch.models.model import cast_leaf, param_specs
+    from repro_torch.models.params import init_params
+    params = init_params(param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed), dev,
+                         transform=lambda t: cast_leaf(cfg, t))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, PROMPT))).to(dev)
+    return params, {"tokens": tokens}
+
+
+def bf16_gate(arch, seed, run, out_k, out_p, flips):
+    """Fail unless every leaf of the bf16 kernel pass is within 0.1 of
+    the leaf's max |plain|; print and return the worst ratio."""
+    ratio, path = worst_leaf(arch, {"logits": out_k[0], "caches": out_k[1]},
+                             {"logits": out_p[0], "caches": out_p[1]})
+    if ratio > 0.1:
+        fail(f"{arch} bf16 seed {seed} run {run}: kernels vs plain at "
+             f"{path} read {ratio} of the leaf's max |plain|, above 0.1")
+    print(f"[prefill] {arch} bf16 seed {seed} run {run}: kernels vs plain "
+          f"(the plain pass on the kernel pass's experts; tokens whose own "
+          f"routing differed: {flips}), worst leaf max |diff| / max |plain| "
+          f"= {ratio} ({path}; gate 0.1)", flush=True)
+    return ratio
+
+
+def phase_prefill(torch, dev, arch, n_layers, B, counters):
+    """One model's prefill at full width (``make_prefill_step``), bf16
+    through the kernels and through their plain versions (the plain pass
+    on the kernel pass's experts), twice for each of PREFILL_SEEDS, and
+    float32 (the first seed's weights upcast, routing not replayed).
+    Gates: the kernel launches of the counted run equal the layers of
+    each kind; every leaf finite; the bf16 runs' logits and every cache
+    leaf within 0.1 of the leaf's max |plain|, the float32 run's within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ATTN, ATTN_LOCAL, MAMBA
+    from repro_torch.models.model import count_params, make_prefill_step
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers).validate()
+    kinds = [m for m, _ in cfg.layer_specs]
+    want = {"flash_attention_call": sum(m in (ATTN, ATTN_LOCAL) for m in kinds),
+            "selective_scan_call": sum(m == MAMBA for m in kinds)}
+    t0 = time.perf_counter()
+    params, batch = prefill_inputs(torch, dev, cfg, B, PREFILL_SEEDS[0])
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    cut = (f"{cfg.n_layers} of the published {published} layers (one period:"
+           f" every layer kind; all {published} exceed the card's memory)"
+           if n_layers else f"{cfg.n_layers} layers, the published depth")
+    print(f"[prefill] {arch}: {cut}, full width; {count_params(cfg)} "
+          f"parameters ({n_bytes} bytes on the card, {cfg.compute_dtype}) "
+          f"drawn in {time.perf_counter() - t0:.2f} s; B={B}, L={PROMPT}",
+          flush=True)
+    step_k = make_prefill_step(cfg)
+    step_p = make_prefill_step(cfg, use_kernel=False)
+
+    for c in counters:
+        c.launches = 0
+    out_k = step_k(params, batch)                 # the main path's run
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{arch}: {name} launched {launches[name]} times in one "
+                 f"prefill, expected {n} (its layers)")
+    n_leaves = len(list(leaves(out_k[1])))
+    del out_k
+    print(f"[prefill] {arch}: launches in the counted prefill "
+          f"{ {k: launches[k] for k in want} } (layers of each kind: "
+          f"{ {k: v for k, v in want.items()} }); logits and {n_leaves} "
+          "cache leaves", flush=True)
+    ms = {}
+    for tag, step in (("kernels", step_k), ("plain", step_p)):
+        step(params, batch)
+        ms[tag], peak = timed_prefill(torch, step, params, batch, 3)
+        print(f"[prefill] {arch} {tag}: {ms[tag]} ms per prefill (3 after "
+              f"the first), {B * PROMPT / ms[tag] * 1e3} prompt tokens/s, "
+              f"max_memory_allocated {peak} bytes", flush=True)
+
+    ratios = []
+    with RouteReplay() as replay:
+        for i, seed in enumerate(PREFILL_SEEDS):
+            if i:
+                del params, batch
+                torch.cuda.empty_cache()
+                params, batch = prefill_inputs(torch, dev, cfg, B, seed)
+            for run in (1, 2):
+                out_k, out_p, flips = replay.paired(step_k, step_p, params,
+                                                    batch, "replay")
+                ratios.append(bf16_gate(arch, seed, run, out_k, out_p, flips))
+                del out_k, out_p
+        print(f"[prefill] {arch} bf16: worst leaf over {len(ratios)} runs "
+              f"(seeds {list(PREFILL_SEEDS)}, two runs each) = "
+              f"{max(ratios)} (gate 0.1)", flush=True)
+
+        del params, batch
+        torch.cuda.empty_cache()
+        params, batch = prefill_inputs(torch, dev, cfg, B, PREFILL_SEEDS[0])
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        for node_path, t in list(leaves(params)):  # upcast in place, leaf by leaf
+            node = params
+            *keys, last = node_path.split("/")
+            for k in keys:
+                node = node[k]
+            node[last] = t.float()
+            del t
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k, out_p, flips = replay.paired(
+            make_prefill_step(cfg32), make_prefill_step(cfg32, use_kernel=False),
+            params, batch, "count")
+        torch.cuda.synchronize()
+        ms["f32 pair"] = (time.perf_counter() - t0) * 1e3
+    ratio, path = worst_leaf(arch, {"logits": out_k[0], "caches": out_k[1]},
+                             {"logits": out_p[0], "caches": out_p[1]})
+    if ratio > 1e-4:
+        fail(f"{arch} float32: kernels vs plain at {path} read {ratio} of "
+             "the leaf's max |plain|, above 1e-4")
+    print(f"[prefill] {arch} in float32 (seed {PREFILL_SEEDS[0]}'s weights "
+          f"upcast): kernels then plain in {ms['f32 pair']} ms (one run "
+          f"each); each pass on its own experts (tokens routed otherwise: "
+          f"{flips}); worst leaf max |diff| / max |plain| = {ratio} "
+          f"({path}; gate 1e-4); {time.perf_counter() - t_phase:.1f} s in "
+          "all", flush=True)
+    del params, out_k, out_p
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
+
+
+def attention_cost(B, H, KV, L, Dh, window, itemsize):
+    """Bytes (q, k, v read once, o written once) and operations (a
+    multiply and an add for each of q.k and p.v over Dh, per allowed
+    (query, key) pair of the causal/window band) of one attention."""
+    w = L if window is None else min(window, L)
+    pairs = w * (w + 1) // 2 + (L - w) * w
+    return (2 * B * L * H + 2 * B * L * KV) * Dh * itemsize, \
+        4 * B * H * pairs * Dh
+
+
+def device_ms(torch, launch, name, n):
+    """(CUDA-event ms per launch over ``n`` back-to-back launches, host
+    enqueue ms, profiler device ms); fails if the profiler does not see
+    the kernel by its name."""
+    ev, host = time_launches([launch], n, warmup=3)
+    prof = profile_kernels([launch], [name], n=5)[name]
+    if prof is None:
+        fail(f"torch.profiler saw no CUDA kernel named {name}")
+    return ev, host, prof
+
+
+def time_model_kernels(torch, dev, errs, launches):
+    """Both model kernels at the slice's shapes (random inputs of the
+    main path's shapes, layout and dtype) beside their plain versions,
+    their bounds, and for attention ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import plan_flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    from repro_torch.kernels.selective_scan.kernel import plan_selective_scan
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = []
+    for tag, B, H, KV, L, Dh, win in FA_FULL:
+        q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.bfloat16)
+        launch, _ = plan_flash_attention(q, k, v, window=win)
+        ms, host, prof = device_ms(torch, launch, "flash_attention_kernel", 20)
+        plain = time_ms(lambda: flash_attention_blhd(
+            q, k, v, window=win, use_kernel=False), reps=5)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if win is not None:
+            pos = torch.arange(L, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - win)
+        lib, lib_host = time_launches([lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)], 20, warmup=3)
+        n_bytes, n_ops = attention_cost(B, H, KV, L, Dh, win, 2)
+        t_ops, t_bytes = n_ops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        print(f"[timing] flash_attention at {tag} (B {B}, H {H}, KV {KV}, L "
+              f"{L}, Dh {Dh}, window {win}, bf16, (B, L, H, Dh) layout): "
+              f"kernel {ms} ms (CUDA events over 20 back-to-back launches; "
+              f"host enqueue {host} ms), profiler {prof} ms; plain {plain} "
+              f"ms; scaled_dot_product_attention {lib} ms (host {lib_host} "
+              f"ms); bound {bound} ms ({by}; {n_ops} operations at the bf16 "
+              f"tensor-core peak, {n_bytes} bytes) = {bound / ms} of the "
+              f"bound", flush=True)
+        if tag == "gemma3-1b global":
+            rows.append(dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:77",
+                launches=launches["flash_attention_call"],
+                max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib))
+        del q, k, v, qh, kh, vh
+    tag, B, H, KV, L, Dh, win = FA_FULL[-1]
+    q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.float32)
+    launch, _ = plan_flash_attention(q, k, v, window=win)
+    ms, host, prof = device_ms(torch, launch, "flash_attention_kernel", 20)
+    print(f"[timing] flash_attention at {tag} in float32 (the float32 "
+          f"prefill's inputs): kernel {ms} ms (CUDA events over 20 "
+          f"back-to-back launches; host enqueue {host} ms), profiler {prof} "
+          "ms", flush=True)
+    del q, k, v
+    B, L, Di, S = SCAN_SWEEP[-1]
+    args = scan_inputs(torch, gen, B, L, Di, S)
+    launch, _ = plan_selective_scan(*args)
+    ms, host, prof = device_ms(torch, launch, "selective_scan_kernel", 20)
+    plain = time_ms(lambda: selective_scan(*args, use_kernel=False), reps=3)
+    n_bytes = (2 * B * L * Di * S + B * L * S + 2 * B * Di * S + B * L * Di) * 4
+    n_ops = 4 * B * L * Di * S
+    bound, by = bound_ms(n_bytes, n_ops, 0.0)
+    print(f"[timing] selective_scan at jamba-v0.1-52b's Mamba layer (B {B}, "
+          f"L {L}, Di {Di}, S {S}, float32): kernel {ms} ms (CUDA events "
+          f"over 20 back-to-back launches; host enqueue {host} ms), "
+          f"profiler {prof} ms; plain {plain} ms; bound {bound} ms ({by}; "
+          f"{n_bytes} bytes, {n_ops} operations) = "
+          f"{n_bytes / (ms * 1e-3) / 1e12} TB/s achieved; no single PyTorch "
+          f"call computes the recurrence, so no library time", flush=True)
+    rows.append(dict(
+        name="selective_scan", route="cuda",
+        source="src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+        replaces="src/repro/kernels/selective_scan/kernel.py:46",
+        launches=launches["selective_scan_call"],
+        max_abs_err=errs["selective_scan"], ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None))
+    return rows
+
+
+# --------------------------------------------------------------------------
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -1785,6 +2270,8 @@ def main() -> None:
     from repro_torch.kernels.stream_dispatch.kernel import (
         onehot_gather_call, stream_dispatch_call)
     from repro_torch.kernels.window_agg.kernel import window_agg_call
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_call
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1884,6 +2371,23 @@ def main() -> None:
         sources, errs, {k: sum(run[k] for run in d_launches.values())
                         for k in ("stream_dispatch_call",
                                   "onehot_gather_call")})
+    # ---- 14. the model kernels against their plain versions ---------------
+    del eng, suite, e_sh, d_engines         # the engines' device memory
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
+    torch.backends.cudnn.allow_tf32 = False         # precision (the defaults)
+    m_errs = phase_model_kernels(torch, dev)
+
+    # ---- 15-16. prefill of gemma3-1b and jamba-v0.1-52b at full width ----
+    m_counters = counters + (flash_attention_call, selective_scan_call)
+    m_launches = {"flash_attention_call": 0, "selective_scan_call": 0}
+    for arch, n_layers, B in PREFILL_MODELS:
+        for k, n in phase_prefill(torch, dev, arch, n_layers, B,
+                                  m_counters).items():
+            m_launches[k] += n
+
+    # ---- 17. timings of the model kernels -----------------------------------
+    rows += time_model_kernels(torch, dev, m_errs, m_launches)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -5,9 +5,10 @@ Everything here fixes the shape of a tensor the engine round reads or
 writes (the analogue of the STORM topology's worker/executor counts).
 Tenants' pipelines live entirely in device tensors sized by these
 capacities, so creating, rewiring or destroying a pipeline is a table
-edit and never changes a shape.  Fields that belong to planes this
-package has not ported yet (sharding, superstep, durability) are kept so
-a configuration round-trips unchanged between the two packages.
+edit and never changes a shape.  The sharded and superstep planes are
+ported; fields of the planes this package has not ported yet (durability
+checkpoints and retention replay) are kept so a configuration
+round-trips unchanged between the two packages.
 """
 from __future__ import annotations
 
@@ -33,12 +34,12 @@ class EngineConfig:
     n_temps: int = 16           # VM temporary registers
     sink_buffer: int = 256      # per-round external-emission buffer rows
 
-    # ---- sharded stream plane (not ported yet) ------
+    # ---- sharded stream plane ------
     n_shards: int = 1           # 1-D device mesh size for the pub/sub plane
     partition: str = "block"    # "block" (sid ranges) | "tenant" (hash)
     exchange_slots: int = 0     # per-destination exchange rows (0 -> work)
 
-    # ---- superstep execution plane (not ported yet) -------------
+    # ---- superstep execution plane -------------
     superstep: int = 1          # rounds fused per compiled scan (1 = off)
     sink_spool_slots: int = 0   # per-superstep sink spool rows (0 -> K*sink)
 

@@ -1404,8 +1404,9 @@ class StreamEngine:
 
     def _sync_admitted(self) -> None:
         """Hook: the round's program table changed shape or storage (see
-        :meth:`_cut_programs`).  Every other edit is in place, so this is
-        the one point where a captured round would be captured again;
+        :meth:`_cut_programs`), or :meth:`_install_snapshot` rebound every
+        table and state tensor.  Every other edit is in place, so these
+        are the points where a captured round would be captured again;
         nothing is captured yet."""
 
     # ----------------------------------------------------- tenant QoS plane
@@ -1757,6 +1758,7 @@ class StreamEngine:
         self._last_base = self._rounds_done
         self._ring, self._ring_K, self._ring_free = None, 0, []
         self._refresh_fusable()
+        self._sync_admitted()
 
 
 def create_engine(registry: Registry, *, device="cuda", **kw) -> StreamEngine:

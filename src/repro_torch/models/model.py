@@ -1,0 +1,373 @@
+"""Block-pattern language model on the prefill path (the port of
+``repro.models.model``: parameter and cache tables, ``forward`` and
+``make_prefill_step``; training and decode come with later slices).
+
+A model is ``ModelConfig.prefix + pattern * n_scan`` (mixer, mlp) layers.
+The parameter tree is ``repro``'s: unscanned ``prefix/l{i}`` layers and
+the repeated pattern's ``scan/s{j}`` layers stacked along a leading
+``n_scan`` dim.  ``repro`` runs the pattern with ``lax.scan``; here it is
+a Python loop over the stacked leaves, with the caches stacked the same
+way.  Attention layers attend through ``kernels.flash_attention`` and
+Mamba layers scan through ``kernels.selective_scan``: the CUDA kernels
+for tensors on the card, their plain versions on the CPU or with
+``use_kernel=False``.  mLSTM and sLSTM layers (xLSTM) are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM,
+                                       MOE, SLSTM, ModelConfig)
+from repro_torch.models.params import ParamSpec, Path, count
+
+XLSTM_TODO = ("mLSTM/sLSTM (xLSTM) layers are not ported yet: they come "
+              "with the next slice of the model plane, xLSTM prefill with "
+              "mlstm_chunkwise (ROADMAP queue 1)")
+
+# --------------------------------------------------------------------------
+# Parameter spec tables
+# --------------------------------------------------------------------------
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    pd = cfg.param_dtype
+    s = {
+        "norm": ParamSpec((D,), ("d_model",), "zeros" if cfg.gemma_norm else "ones", pd),
+        "wq": ParamSpec((D, H * dh), ("d_model", "heads_dh"), "normal", pd),
+        "wk": ParamSpec((D, KV * dh), ("d_model", "kv_dh"), "normal", pd),
+        "wv": ParamSpec((D, KV * dh), ("d_model", "kv_dh"), "normal", pd),
+        "wo": ParamSpec((H * dh, D), ("heads_dh", "d_model"), "normal", pd),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((dh,), (None,), "ones", pd)
+        s["k_norm"] = ParamSpec((dh,), (None,), "ones", pd)
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig, width: int) -> Dict[str, ParamSpec]:
+    D, pd = cfg.d_model, cfg.param_dtype
+    s = {"norm": ParamSpec((D,), ("d_model",),
+                           "zeros" if cfg.gemma_norm else "ones", pd),
+         "w_up": ParamSpec((D, width), ("d_model", "d_ff"), "normal", pd),
+         "w_down": ParamSpec((width, D), ("d_ff", "d_model"), "normal", pd)}
+    if cfg.mlp_gated:
+        s["w_gate"] = ParamSpec((D, width), ("d_model", "d_ff"), "normal", pd)
+    return s
+
+
+def _moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, E, Fe, pd = cfg.d_model, cfg.n_experts, cfg.d_expert, cfg.param_dtype
+    s = {
+        "norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "router": ParamSpec((D, E), ("d_model", None), "normal", "float32"),
+        "w_gate": ParamSpec((E, D, Fe), ("experts", "d_model", "d_expert"), "normal", pd),
+        "w_up": ParamSpec((E, D, Fe), ("experts", "d_model", "d_expert"), "normal", pd),
+        "w_down": ParamSpec((E, Fe, D), ("experts", "d_expert", "d_model"), "normal", pd),
+    }
+    if cfg.n_shared > 0:
+        Fs = cfg.n_shared * Fe
+        s["ws_gate"] = ParamSpec((D, Fs), ("d_model", "d_ff"), "normal", pd)
+        s["ws_up"] = ParamSpec((D, Fs), ("d_model", "d_ff"), "normal", pd)
+        s["ws_down"] = ParamSpec((Fs, D), ("d_ff", "d_model"), "normal", pd)
+        if cfg.shared_gate:
+            s["w_shared_gate"] = ParamSpec((D, 1), ("d_model", None), "normal", pd)
+    return s
+
+
+def _mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, Di, S, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    pd = cfg.param_dtype
+    s = {
+        "norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "in_proj": ParamSpec((D, 2 * Di), ("d_model", "d_inner2"), "normal", pd),
+        "conv": ParamSpec((K, Di), (None, "d_inner"), "normal", pd, scale=0.5),
+        "x_proj": ParamSpec((Di, R + 2 * S), ("d_inner", None), "normal", pd),
+        "dt_proj": ParamSpec((R, Di), (None, "d_inner"), "normal", pd),
+        "dt_bias": ParamSpec((Di,), ("d_inner",), "dt_bias", "float32"),
+        "A_log": ParamSpec((Di, S), ("d_inner", None), "a_log", "float32"),
+        "D": ParamSpec((Di,), ("d_inner",), "ones", "float32"),
+        "out_proj": ParamSpec((Di, D), ("d_inner", "d_model"), "normal", pd),
+    }
+    if cfg.ssm_norm:
+        s["dt_norm"] = ParamSpec((R,), (None,), "ones", pd)
+        s["b_norm"] = ParamSpec((S,), (None,), "ones", pd)
+        s["c_norm"] = ParamSpec((S,), (None,), "ones", pd)
+    return s
+
+
+def _xlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    raise NotImplementedError(XLSTM_TODO)
+
+
+_MIXER_SPECS = {ATTN: _attn_specs, ATTN_LOCAL: _attn_specs,
+                MAMBA: _mamba_specs, MLSTM: _xlstm_specs, SLSTM: _xlstm_specs}
+
+
+def _layer_specs(cfg: ModelConfig, spec) -> Dict[str, Dict[str, ParamSpec]]:
+    mixer, mlp = spec
+    out = {"mixer": _MIXER_SPECS[mixer](cfg)}
+    if mlp == DENSE:
+        width = cfg.d_ff_prefix if (cfg.d_ff_prefix and spec in cfg.prefix) else cfg.d_ff
+        out["mlp"] = _mlp_specs(cfg, width)
+    elif mlp == MOE:
+        out["mlp"] = _moe_specs(cfg)
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Dict[Path, ParamSpec]:
+    D, V = cfg.d_model, cfg.vocab
+    pd = cfg.param_dtype
+    flat: Dict[Path, ParamSpec] = {}
+    if not cfg.embed_inputs:
+        eshape = (cfg.n_codebooks, V, D) if cfg.n_codebooks > 1 else (V, D)
+        eaxes = ("codebooks", "vocab", "d_model") if cfg.n_codebooks > 1 else ("vocab", "d_model")
+        flat[("embed", "tok")] = ParamSpec(eshape, eaxes, "small", pd)
+    for i, spec in enumerate(cfg.prefix):
+        for comp, d in _layer_specs(cfg, spec).items():
+            for name, ps in d.items():
+                flat[("prefix", f"l{i}", comp, name)] = ps
+    n = cfg.n_scan
+    for j, spec in enumerate(cfg.pattern):
+        for comp, d in _layer_specs(cfg, spec).items():
+            for name, ps in d.items():
+                flat[("scan", f"s{j}", comp, name)] = ParamSpec(
+                    (n,) + ps.shape, ("layers",) + ps.axes, ps.init, ps.dtype, ps.scale)
+    flat[("final", "norm")] = ParamSpec(
+        (D,), ("d_model",), "zeros" if cfg.gemma_norm else "ones", pd)
+    if not cfg.tie_embeddings:
+        hshape = (cfg.n_codebooks, D, V) if cfg.n_codebooks > 1 else (D, V)
+        haxes = ("codebooks", "d_model", "vocab") if cfg.n_codebooks > 1 else ("d_model", "vocab")
+        flat[("head", "w")] = ParamSpec(hshape, haxes, "normal", pd)
+    return flat
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False,
+                 exclude_embed: bool = False) -> int:
+    def weight(path: Path, ps: ParamSpec) -> float:
+        if exclude_embed and path[0] in ("embed", "head"):
+            return 0.0
+        if active_only and "experts" in ps.axes:
+            return cfg.top_k / cfg.n_experts
+        return 1.0
+    return count(param_specs(cfg), weight)
+
+
+# --------------------------------------------------------------------------
+# Cache spec tables (prefill-collect)
+# --------------------------------------------------------------------------
+
+def _layer_cache_specs(cfg: ModelConfig, spec, B: int, S: int
+                       ) -> Dict[str, ParamSpec]:
+    mixer, _ = spec
+    cd = cfg.compute_dtype
+    if mixer in (ATTN, ATTN_LOCAL):
+        slots = min(S, cfg.window) if (mixer == ATTN_LOCAL and cfg.window) else S
+        sh = (B, slots, cfg.n_kv_heads, cfg.d_head)
+        ax = ("batch", "seq", "kv_heads", "d_head")
+        return {"k": ParamSpec(sh, ax, "zeros", cd),
+                "v": ParamSpec(sh, ax, "zeros", cd)}
+    if mixer == MAMBA:
+        Di, St, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+        return {"conv": ParamSpec((B, K - 1, Di), ("batch", None, "d_inner"), "zeros", cd),
+                "ssm": ParamSpec((B, Di, St), ("batch", "d_inner", None), "zeros", cd)}
+    if mixer in (MLSTM, SLSTM):
+        raise NotImplementedError(XLSTM_TODO)
+    raise ValueError(mixer)
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int) -> Dict[Path, ParamSpec]:
+    flat: Dict[Path, ParamSpec] = {}
+    for i, spec in enumerate(cfg.prefix):
+        for name, ps in _layer_cache_specs(cfg, spec, B, S).items():
+            flat[("prefix", f"l{i}", name)] = ps
+    n = cfg.n_scan
+    for j, spec in enumerate(cfg.pattern):
+        for name, ps in _layer_cache_specs(cfg, spec, B, S).items():
+            flat[("scan", f"s{j}", name)] = ParamSpec(
+                (n,) + ps.shape, ("layers",) + ps.axes, ps.init, ps.dtype)
+    return flat
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _apply_layer(cfg, spec, lp, x, positions, collect, cache_pad_to,
+                 use_kernel):
+    mixer, mlp = spec
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mixer in (ATTN, ATTN_LOCAL):
+        y, nc = attention.attention_block(
+            cfg, lp["mixer"], x, positions, local=(mixer == ATTN_LOCAL),
+            cache="collect" if collect else None, cache_pad_to=cache_pad_to,
+            use_kernel=use_kernel)
+        new_cache = {"k": nc.k, "v": nc.v} if nc is not None else {}
+    elif mixer == MAMBA:
+        y, nc = ssm.mamba_block(cfg, lp["mixer"], x, None, collect,
+                                use_kernel=use_kernel)
+        new_cache = nc if nc is not None else {}
+    elif mixer in (MLSTM, SLSTM):
+        raise NotImplementedError(XLSTM_TODO)
+    else:
+        raise ValueError(mixer)
+    x = x + y
+
+    if mlp == DENSE:
+        p = lp["mlp"]
+        h = layers.rms_norm(x, p["norm"], cfg.norm_eps, plus_one=cfg.gemma_norm)
+        if cfg.mlp_gated:
+            y2 = layers.swiglu(h, p["w_gate"], p["w_up"], p["w_down"], cfg.mlp_act)
+        else:
+            y2 = layers.mlp_plain(h, p["w_up"], p["w_down"], cfg.mlp_act)
+        x = x + y2
+    elif mlp == MOE:
+        y2, aux = moe.moe_block(cfg, lp["mlp"], x)
+        x = x + y2
+    return x, new_cache, aux
+
+
+def _embed(cfg, params, tokens=None, embeds=None, positions=None):
+    cd = cfg.cdtype
+    if cfg.embed_inputs:
+        x = embeds.to(cd)
+    elif cfg.n_codebooks > 1:
+        # tokens: (B, L, K) — sum the K codebook embeddings
+        emb = params["embed"]["tok"]                    # (K, V, D)
+        x = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=cd,
+                        device=emb.device)
+        for k in range(cfg.n_codebooks):
+            x = x + emb[k][tokens[:, :, k]].to(cd)
+    else:
+        x = params["embed"]["tok"][tokens].to(cd)
+    if cfg.scale_embed:
+        # the constant rounded to the compute dtype first, as repro's
+        # jnp.asarray(sqrt(d), cdtype): 33.75, not 33.94, in bf16 at d 1152
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
+    if cfg.pos_emb == "sinusoidal":
+        B, L = x.shape[:2]
+        pos = positions if positions.dim() == 2 else positions.expand(B, L)
+        half = cfg.d_model // 2
+        inv = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                              device=x.device) / half))
+        ang = pos[..., None].float() * inv
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(x.dtype)
+    return x
+
+
+def _head(cfg, params, x):
+    x = layers.rms_norm(x, params["final"]["norm"], cfg.norm_eps,
+                        plus_one=cfg.gemma_norm)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["tok"].T.to(x.dtype)
+    elif cfg.n_codebooks > 1:
+        logits = torch.einsum("bld,kdv->blkv", x, params["head"]["w"])
+    else:
+        logits = x @ params["head"]["w"]
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits.float() / cap)
+    return logits
+
+
+def cast_leaf(cfg: ModelConfig, p: torch.Tensor) -> torch.Tensor:
+    """``cast_params``' rule for one leaf: a float32 leaf of two or more
+    dims goes to the compute dtype.  A stacked scan leaf counts its layer
+    dim, so the stacked norm gammas, ``dt_bias``, ``D`` and ``A_log``
+    become the compute dtype too, while the same 1-D leaves of prefix
+    layers stay float32 — exactly as in ``repro``."""
+    cd = cfg.cdtype
+    if cd != torch.float32 and p.dim() >= 2 and p.dtype == torch.float32:
+        return p.to(cd)
+    return p
+
+
+def cast_params(cfg: ModelConfig, params):
+    """Mixed precision as ``repro``'s ``cast_params``: matrices (and every
+    stacked leaf) in the compute dtype, unstacked vectors in float32."""
+    return _tree_map(lambda p: cast_leaf(cfg, p), params)
+
+
+def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
+           collect_cache: bool, cache_pad_to: Optional[int],
+           use_kernel: Optional[bool]):
+    """Embedding and every layer, on cast parameters: (x before the final
+    norm, caches in ``repro``'s tree layout or None, aux loss)."""
+    ref = tokens if tokens is not None else embeds
+    B, L = ref.shape[0], ref.shape[1]
+    dev = ref.device
+    if positions is None:
+        positions = torch.arange(L, device=dev)[None, :].expand(B, L)
+        if cfg.mrope:
+            positions = positions[None].expand(3, B, L)
+
+    x = _embed(cfg, params, tokens, embeds, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    new_caches: Dict = {"scan": {}}
+    if cfg.prefix:
+        new_caches["prefix"] = {}
+
+    for i, spec in enumerate(cfg.prefix):
+        key = f"l{i}"
+        x, nc, a = _apply_layer(cfg, spec, params["prefix"][key], x,
+                                positions, collect_cache, cache_pad_to,
+                                use_kernel)
+        new_caches["prefix"][key] = nc
+        aux = aux + a
+
+    per_iter = []
+    for i in range(cfg.n_scan):
+        slot_params = _tree_map(lambda leaf: leaf[i], params["scan"])
+        outs = {}
+        for j, spec in enumerate(cfg.pattern):
+            key = f"s{j}"
+            x, nc, a = _apply_layer(cfg, spec, slot_params[key], x,
+                                    positions, collect_cache, cache_pad_to,
+                                    use_kernel)
+            outs[key] = nc
+            aux = aux + a
+        per_iter.append(outs)
+    new_caches["scan"] = {
+        key: {name: torch.stack([it[key][name] for it in per_iter])
+              for name in per_iter[0][key]}
+        for key in per_iter[0]}
+    return x, (new_caches if collect_cache else None), aux
+
+
+def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
+            positions=None, collect_cache: bool = False,
+            cache_pad_to: Optional[int] = None,
+            use_kernel: Optional[bool] = None):
+    """Full-sequence forward from position 0.  Returns (logits,
+    caches_or_None, aux_loss); ``collect_cache`` returns every layer's
+    prefill cache in ``repro``'s tree layout."""
+    params = cast_params(cfg, params)
+    x, caches, aux = _trunk(cfg, params, tokens, embeds, positions,
+                            collect_cache, cache_pad_to, use_kernel)
+    return _head(cfg, params, x), caches, aux
+
+
+def make_prefill_step(cfg: ModelConfig, pad_to: Optional[int] = None,
+                      use_kernel: Optional[bool] = None):
+    """``prefill(params, batch) -> (last-position logits, caches)``.
+    ``pad_to``: decode-continuation capacity of the returned caches; None
+    keeps them at the prompt length (``cache_specs(cfg, B, L)``).  The
+    head runs on the last position only: ``repro``'s prefill slices the
+    full logits, which XLA computes for that position alone, and the full
+    (B, L, vocab) logits would be gemma3-1b's largest tensor."""
+    def prefill(params, batch):
+        params = cast_params(cfg, params)
+        x, caches, _ = _trunk(cfg, params, batch.get("tokens"),
+                              batch.get("embeds"), None, True, pad_to,
+                              use_kernel)
+        return _head(cfg, params, x[:, -1:])[:, 0], caches
+    return prefill

@@ -433,3 +433,93 @@ def test_dispatch_fanout_engine_on_the_card_equals_the_cpu(dev, D, fused):
                 _assert_bits(eg.state.stats[k], ec.state.stats[k])
         else:
             _assert_bits(getattr(eg.state, f), getattr(ec.state, f))
+
+
+# ------------------------------------------------------ model-plane kernels
+def _fa_inputs(dev, seed, B, H, KV, L, Dh, dtype, transposed=False):
+    """(B, L, H, Dh) q and (B, L, KV, Dh) k, v; ``transposed`` makes them
+    transposed views of (B, H, L, Dh) and (B, KV, L, Dh) tensors."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, H, L, Dh), (B, KV, L, Dh)) if transposed else \
+        ((B, L, H, Dh), (B, L, KV, Dh))
+    q = rng.standard_normal(shapes[0]).astype(np.float32)
+    k, v = (rng.standard_normal(shapes[1]).astype(np.float32) for _ in "kv")
+    out = [torch.from_numpy(x).to(dev, dtype) for x in (q, k, v)]
+    return [t.transpose(1, 2) for t in out] if transposed else out
+
+
+@pytest.mark.parametrize("B,H,KV,L,Dh,win", [
+    (1, 2, 2, 128, 64, None), (2, 4, 2, 256, 128, None),
+    (1, 4, 1, 256, 64, 64), (2, 2, 2, 128, 32, 32), (1, 8, 4, 128, 64, None),
+    (2, 4, 1, 77, 256, 13), (1, 3, 1, 1, 16, None), (1, 4, 2, 200, 24, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, H, KV, L, Dh, win,
+                                              dtype):
+    """At the sweep of tests/test_kernels.py and odd shapes, the
+    (B, H, L, Dh) tensors read through transposed views."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    q, k, v = _fa_inputs(dev, L + Dh, B, H, KV, L, Dh, dtype, True)
+    got = flash_attention_blhd(q, k, v, window=win)
+    torch.cuda.synchronize()
+    want = flash_attention_blhd(q, k, v, window=win, use_kernel=False)
+    assert got.dtype == dtype and got.shape == (B, L, H * Dh)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_the_model_layout(dev, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    q, k, v = _fa_inputs(dev, 5, 2, 4, 1, 300, 256, dtype)
+    got = flash_attention_blhd(q, k, v, window=64)
+    want = flash_attention_blhd(q, k, v, window=64, use_kernel=False)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,L,Di,S", [(1, 16, 32, 8), (2, 64, 128, 16),
+                                      (1, 128, 256, 16), (2, 37, 40, 4),
+                                      (1, 300, 96, 32)])
+def test_selective_scan_kernel_matches_plain(dev, B, L, Di, S):
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    rng = np.random.default_rng(L + Di)
+    a = np.exp(-np.abs(rng.standard_normal((B, L, Di, S)))).astype(np.float32)
+    bx = rng.standard_normal((B, L, Di, S)).astype(np.float32)
+    c = rng.standard_normal((B, L, S)).astype(np.float32)
+    h0 = rng.standard_normal((B, Di, S)).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in (a, bx, c, h0)]
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    wy, wh = selective_scan(*args, use_kernel=False)
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+
+
+def _tree(fn, t):
+    return {k: _tree(fn, v) for k, v in t.items()} if isinstance(t, dict) \
+        else fn(t)
+
+
+def _flat(t):
+    return [x for k in sorted(t) for x in _flat(t[k])] \
+        if isinstance(t, dict) else [t]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b"])
+def test_smoke_prefill_on_the_card_equals_the_cpu(dev, arch):
+    """The SMOKE model's prefill through the kernels on the card against
+    its plain versions on the CPU, from the same weights, in float32."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import make_prefill_step, param_specs
+    from repro_torch.models.params import init_params
+    cfg = get_smoke(arch)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64)))
+    step = make_prefill_step(cfg)
+    want = step(params, {"tokens": tok})
+    got = step(_tree(lambda t: t.to(dev), params), {"tokens": tok.to(dev)})
+    for g, w in zip(_flat({"l": got[0], "c": got[1]}),
+                    _flat({"l": want[0], "c": want[1]})):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)

@@ -242,6 +242,27 @@ def test_snapshot_carried_across_continues_bitwise():
         _post([ej, ep], sj, rng, r)
 
 
+def test_snapshot_install_reaches_the_admission_hook(monkeypatch):
+    """Installing a snapshot rebinds every table and state tensor, so it
+    calls ``_sync_admitted`` last, as ``repro``'s install does (the point
+    where a captured round would be captured again)."""
+    ep, _, sp = _build(P, True)
+    rng = np.random.default_rng(7)
+    for r in range(3):
+        _post([ep], sp, rng, r)
+        ep.round()
+    arrays, meta = ep.snapshot()
+    fresh = P.engine_from_snapshot(arrays, meta, device="cpu")
+    calls = []
+    monkeypatch.setattr(PE.StreamEngine, "_sync_admitted",
+                        lambda self: calls.append(
+                            (self, self.tables, self.state)))
+    fresh._install_snapshot(arrays, meta)
+    assert len(calls) == 1
+    eng, tables, state = calls[0]
+    assert eng is fresh and tables is fresh.tables and state is fresh.state
+
+
 def test_engine_defaults_to_cuda_and_refuses_the_cpu_silently():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

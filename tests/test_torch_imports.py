@@ -38,7 +38,19 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.kernels.stream_dispatch.kernel",
               "repro_torch.workloads.dataflows",
               "repro_torch.workloads.runner",
-              "repro_torch.workloads.traces"):
+              "repro_torch.workloads.traces",
+              "repro_torch.models.config", "repro_torch.models.params",
+              "repro_torch.models.layers", "repro_torch.models.attention",
+              "repro_torch.models.ssm", "repro_torch.models.moe",
+              "repro_torch.models.model", "repro_torch.models.convert",
+              "repro_torch.configs", "repro_torch.configs.gemma3_1b",
+              "repro_torch.configs.jamba_v0p1_52b",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.selective_scan.ref",
+              "repro_torch.kernels.selective_scan.ops",
+              "repro_torch.kernels.selective_scan.kernel"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
