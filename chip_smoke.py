@@ -128,6 +128,33 @@ Phases, each printed on its own line:
     (attention's operations at the bf16 tensor-core peak, the scan's
     bytes) and, for attention, ``scaled_dot_product_attention``; also
     attention's float32 time at jamba's layer.
+18. ``mlstm_chunkwise`` (G1) against its plain chunkwise version and the
+    float64 sequential oracle, both within 3e-4 + 3e-4 |ref|
+    (``tests/test_kernels.py``), on the sweep of ``tests/test_kernels.py``,
+    lengths that are no multiple of the chunk, Dh up to 1,024 and forget
+    gates near 0 and 1 and very negative input gates.
+19. ``make_prefill_step`` of xlstm-1.3b at its published size (48
+    layers: 6 sLSTM, 42 mLSTM; B 2, L 4,096) in bf16, weights and prompts
+    from the seed: the counted prefill must launch ``mlstm_chunkwise``'s
+    four kernels once per mLSTM layer (168) and nothing else; per leaf,
+    kernels against plain beside the plain version against itself with
+    the token embeddings one ulp up, in bf16 and in float32 (gated only
+    on finite values: the whole model amplifies a last-bit difference far
+    past 1e-4); bf16 prefills timed (2 each, after earlier runs), prompt
+    tokens/s, peak memory, and one more prefill with each sLSTM scan
+    timed.  G2: every layer fed the plain run's input, its
+    output and cache leaves within 0.1 (bf16) and 1e-4 (float32) of the
+    leaf's max |plain|.  G1 at full width on the inputs the float32 plain
+    run feeds its first and its last mLSTM layer (3e-4, with each path's
+    distance from the float64 oracle printed).
+20. G3: the first period (8 layers, B 2, L 4,096) in float64 through the
+    plain versions is the truth; per leaf, the float32 prefill through
+    the kernels must stray from it at most 10 x the plain float32
+    prefill's distance + 1e-6.
+21. ``mlstm_chunkwise`` timed at the slice's shape on the float32 run's
+    last mLSTM inputs beside its plain version and its operations bound
+    (phase 19 also times the six plain sLSTM scans inside one bf16
+    prefill).
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -2233,6 +2260,434 @@ def time_model_kernels(torch, dev, errs, launches):
 
 
 # --------------------------------------------------------------------------
+# phases 18-21: the xLSTM prefill (xlstm-1.3b) and mlstm_chunkwise
+# --------------------------------------------------------------------------
+
+XLSTM = "xlstm-1.3b"
+XLSTM_BATCH = 2
+# (B, H, L, Dh, chunk, gates): the sweep of tests/test_kernels.py:119, then
+# lengths no multiple of the chunk, Dh up to 1024 and extreme gates
+MLSTM_SWEEP = ((1, 2, 32, 16, 8, "normal"), (2, 2, 64, 32, 16, "normal"),
+               (1, 4, 128, 64, 32, "normal"), (1, 1, 64, 128, 64, "normal"),
+               (2, 3, 37, 16, 16, "normal"), (1, 2, 300, 128, 64, "normal"),
+               (2, 1, 333, 1024, 256, "normal"),
+               (1, 2, 96, 64, 32, "forget near 1"),
+               (1, 2, 96, 64, 32, "forget near 0"),
+               (1, 2, 96, 64, 32, "very negative i"))
+MLSTM_TOL = 3e-4             # tests/test_kernels.py:137
+TF32_OPS_PER_S = 495e12      # H100 SXM tensor cores, dense TF32 (data sheet)
+
+
+def mlstm_inputs(torch, gen, B, H, L, Dh, gates="normal"):
+    """q, k, v ~ N(0, 1); i ~ N(0, 1), f ~ N(2, 1) as tests/test_kernels.py
+    draws them, or gates pushed to an extreme."""
+    dev = gen.device
+    q, k, v = (torch.randn((B, H, L, Dh), generator=gen, device=dev)
+               for _ in range(3))
+    i = torch.randn((B, H, L), generator=gen, device=dev)
+    f = torch.randn((B, H, L), generator=gen, device=dev) + 2
+    if gates == "forget near 1":
+        f += 6
+    elif gates == "forget near 0":
+        f -= 10
+    elif gates == "very negative i":
+        i -= 30
+    return [q, k, v, i, f]
+
+
+def mlstm_check(torch, tag, args, chunk):
+    """The kernel against the plain chunkwise version (gated at
+    MLSTM_TOL, atol + rtol |plain|) and both against the float64
+    sequential oracle (printed; the sweep gates the kernel there too).
+    Returns (max |kernel - plain|, kernel's and plain's max |diff| from
+    the oracle)."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import init_mlstm_state, mlstm_ref
+    B, H, L, Dh = args[0].shape
+    h, st = mlstm_chunkwise(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    wh, wst = mlstm_chunkwise(*args, chunk=chunk, use_kernel=False)
+    err = 0.0
+    for name, g, w in zip("hCnm", (h, *st), (wh, *wst)):
+        err = max(err, close_or_fail(f"mlstm_chunkwise {tag} {name}", g, w,
+                                     MLSTM_TOL))
+    rh, rst = mlstm_ref(*args, *init_mlstm_state(B, H, Dh,
+                                                 device=args[0].device))
+    k_or = p_or = 0.0
+    for g, w, r in zip((h, *st), (wh, *wst), (rh, *rst)):
+        k_or = max(k_or, (g.double() - r).abs().max().item())
+        p_or = max(p_or, (w.double() - r).abs().max().item())
+    return err, (h, st), (rh, rst), k_or, p_or
+
+
+def phase_mlstm_kernel(torch, dev):
+    """G1 on the sweep: the kernel against its plain version and against
+    the float64 oracle, both within MLSTM_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    errs = []
+    for B, H, L, Dh, ck, gates in MLSTM_SWEEP:
+        args = mlstm_inputs(torch, gen, B, H, L, Dh, gates)
+        err, (h, st), (rh, rst), k_or, p_or = mlstm_check(
+            torch, (B, H, L, Dh, ck, gates), args, ck)
+        for name, g, r in zip("hCnm", (h, *st), (rh, *rst)):
+            close_or_fail(f"mlstm_chunkwise {(B, H, L, Dh, ck, gates)} {name} "
+                          "against the float64 oracle", g, r.float(), MLSTM_TOL)
+        errs.append(err)
+        print(f"[mlstm] {(B, H, L, Dh, ck, gates)}: kernel vs plain max "
+              f"|diff| {err}; vs the float64 oracle: kernel {k_or}, plain "
+              f"{p_or} (gate {MLSTM_TOL} + {MLSTM_TOL} |ref| on both)",
+              flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def nudge_up(torch, t):
+    """Every element moved up by one unit in the last place (toward
+    +inf), as numpy's nextafter, for float32 and bf16 alike."""
+    idt = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype]
+    bits = t.view(idt)
+    up = torch.where(t > 0, bits + 1, torch.where(t < 0, bits - 1,
+                                                  torch.ones_like(bits)))
+    return up.view(t.dtype)
+
+
+def leaf_ratios(name, got, want):
+    """max |got - want| / max |want| per leaf of two trees (a prefill's
+    (logits, caches) as ``logits`` and ``caches/...``); fails on a
+    non-finite leaf or a shape mismatch."""
+    import torch
+    if isinstance(got, tuple):
+        got, want = ({"logits": t[0], "caches": t[1]} for t in (got, want))
+    out = {}
+    for (path, g), (wpath, w) in zip(leaves(got), leaves(want)):
+        g, w = g.double(), w.double()
+        if path != wpath or g.shape != w.shape or not (
+                bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+            fail(f"{name} {path}: shapes {tuple(g.shape)}/{tuple(w.shape)} or "
+                 "non-finite values")
+        out[path] = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    return out
+
+
+class MlstmRecorder:
+    """Stands in for ``repro_torch.models.xlstm.mlstm_chunkwise`` while it
+    is installed (``with``) and keeps the arguments of its last call."""
+
+    def __init__(self):
+        from repro_torch.models import xlstm
+        self.xlstm, self.fn, self.args = xlstm, xlstm.mlstm_chunkwise, None
+
+    def __enter__(self):
+        self.xlstm.mlstm_chunkwise = self
+        return self
+
+    def __exit__(self, *exc):
+        self.xlstm.mlstm_chunkwise = self.fn
+
+    def __call__(self, *args, **kw):
+        self.args = args
+        return self.fn(*args, **kw)
+
+
+class ScanTimer:
+    """Stands in for ``repro_torch.models.xlstm.slstm_scan`` while it is
+    installed (``with``): each call synchronises the card before and
+    after it and keeps its host-clock milliseconds."""
+
+    def __init__(self):
+        from repro_torch.models import xlstm
+        self.xlstm, self.fn, self.ms = xlstm, xlstm.slstm_scan, []
+
+    def __enter__(self):
+        self.xlstm.slstm_scan = self
+        return self
+
+    def __exit__(self, *exc):
+        self.xlstm.slstm_scan = self.fn
+
+    def __call__(self, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def layer_walk(torch, cfg, params, batch, gate, tag, record=()):
+    """G2: the plain prefill run layer by layer, and every layer also run
+    through the kernels on the plain run's input.  Fails unless each
+    layer's output and cache leaves lie within ``gate`` of the leaf's
+    max |plain|.  Returns the mLSTM inputs (q, k, v, i, f) that the plain
+    run fed the layers whose index is in ``record``."""
+    from repro_torch.models import model as M
+    from repro_torch.models.config import MLSTM
+    params = M.cast_params(cfg, params)
+    x = M._embed(cfg, params, batch["tokens"])
+    recorded, worst, slstm = {}, (0.0, ""), []
+    for i in range(cfg.n_scan):
+        slot = M._tree_map(lambda t: t[i], params["scan"])
+        for j, spec in enumerate(cfg.pattern):
+            idx = i * cfg.period + j
+            lp = slot[f"s{j}"]
+            with MlstmRecorder() as rec:
+                yp, cp, _ = M._apply_layer(cfg, spec, lp, x, None, True, None,
+                                           False)
+            if idx in record:
+                recorded[idx] = rec.args
+            yk, ck, _ = M._apply_layer(cfg, spec, lp, x, None, True, None, None)
+            r = leaf_ratios(f"{tag} layer {idx}", {"out": yk, "cache": ck},
+                            {"out": yp, "cache": cp})
+            layer_worst = max((v, p) for p, v in r.items())
+            if spec[0] == MLSTM:
+                if layer_worst[0] > gate:
+                    fail(f"{XLSTM} {tag}: layer {idx} (mLSTM) fed the plain "
+                         f"run's input reads {layer_worst[0]} at "
+                         f"{layer_worst[1]}, above {gate}")
+                worst = max(worst, (layer_worst[0], f"layer {idx} "
+                                    f"{layer_worst[1]}"))
+            else:
+                slstm.append(layer_worst[0])
+            x = yp
+            del yk, ck, cp
+    return recorded, worst, slstm
+
+
+def full_depth_pass(torch, step_k, step_p, params, batch, nudged):
+    """Kernels against plain and the plain version against itself on
+    embeddings nudged by one ulp: (ratios, ratios, kernel output)."""
+    out_k = step_k(params, batch)
+    out_p = step_p(params, batch)
+    kp = leaf_ratios(f"{XLSTM} kernels vs plain", out_k, out_p)
+    del out_k
+    tok = params["embed"]["tok"]
+    params["embed"]["tok"] = nudged
+    try:
+        out_n = step_p(params, batch)
+    finally:
+        params["embed"]["tok"] = tok
+    nn = leaf_ratios(f"{XLSTM} nudged vs plain", out_n, out_p)
+    return kp, nn
+
+
+def phase_xlstm(torch, dev, counters):
+    """xlstm-1.3b at its published size (48 layers, B 2, L 4096; 1 sLSTM and
+    7 mLSTM layers a period).  The counted bf16 prefill (its
+    ``mlstm_chunkwise`` launches must be 4 per mLSTM layer); bf16
+    prefills timed through the kernels and through their plain versions;
+    per leaf, kernels against plain beside the plain version against
+    itself with the embeddings one ulp up, in bf16 and in float32 (gate:
+    finite); G2 in bf16 (0.1) and float32 (1e-4); G1 at full width on
+    the inputs the float32 plain run feeds its first and last mLSTM
+    layer; G3 on the first period against float64."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm_chunk.kernel import LAUNCHES_PER_CALL
+    from repro_torch.models.config import MLSTM, SLSTM
+    from repro_torch.models.model import count_params, make_prefill_step
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM)
+    B = XLSTM_BATCH
+    kinds = [m for m, _ in cfg.layer_specs]
+    want = {"flash_attention_call": 0, "selective_scan_call": 0,
+            "mlstm_chunkwise_call": LAUNCHES_PER_CALL * kinds.count(MLSTM)}
+    t0 = time.perf_counter()
+    params, batch = prefill_inputs(torch, dev, cfg, B, PREFILL_SEEDS[0])
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    print(f"[xlstm] {XLSTM}: {cfg.n_layers} layers, the published depth "
+          f"({kinds.count(SLSTM)} sLSTM, {kinds.count(MLSTM)} mLSTM), full "
+          f"width; {count_params(cfg)} parameters ({n_bytes} bytes on the "
+          f"card, {cfg.compute_dtype}) drawn in "
+          f"{time.perf_counter() - t0:.2f} s; B={B}, L={PROMPT}", flush=True)
+    step_k = make_prefill_step(cfg)
+    step_p = make_prefill_step(cfg, use_kernel=False)
+
+    for c in counters:
+        c.launches = 0
+    out = step_k(params, batch)                    # the main path's run
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{XLSTM}: {name} launched {launches[name]} times in one "
+                 f"prefill, expected {n}")
+    del out
+    print(f"[xlstm] launches in the counted prefill "
+          f"{ {k: launches[k] for k in want} } ({LAUNCHES_PER_CALL} CUDA "
+          f"launches per mlstm_chunkwise call, one call per mLSTM layer)",
+          flush=True)
+    ratios = {}
+    ratios["bf16"] = full_depth_pass(
+        torch, step_k, step_p, params, batch,
+        nudge_up(torch, params["embed"]["tok"]))
+    ms = {}
+    for tag, step in (("kernels", step_k), ("plain", step_p)):
+        ms[tag], peak = timed_prefill(torch, step, params, batch, 2)
+        print(f"[xlstm] {XLSTM} bf16 {tag}: {ms[tag]} ms per prefill (2, "
+              f"after earlier runs of both), {B * PROMPT / ms[tag] * 1e3} "
+              f"prompt tokens/s, max_memory_allocated {peak} bytes",
+              flush=True)
+    with ScanTimer() as scans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_k(params, batch)
+        torch.cuda.synchronize()
+        ms["with scan timer"] = (time.perf_counter() - t0) * 1e3
+    ms["slstm scans"] = scans.ms
+    print(f"[xlstm] {XLSTM} bf16 through the kernels, the sLSTM scans timed "
+          f"(the card synchronised around each): {len(scans.ms)} scans "
+          f"{scans.ms} ms, {sum(scans.ms)} ms of the prefill's "
+          f"{ms['with scan timer']} ms; {len(kinds) - len(scans.ms)} "
+          f"mLSTM layers' mlstm_chunkwise: see [timing]", flush=True)
+    _, worst, slstm = layer_walk(torch, cfg, params, batch, 0.1, "bf16")
+    print(f"[xlstm] G2 bf16: all {cfg.n_layers} layers fed the bf16 plain "
+          f"run's input, kernels vs plain worst leaf {worst[0]} ({worst[1]}; "
+          f"gate 0.1); sLSTM layers (no kernel) {slstm}", flush=True)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for node_path, t in list(leaves(params)):      # upcast leaf by leaf
+        node = params
+        *keys, last = node_path.split("/")
+        for k in keys:
+            node = node[k]
+        node[last] = t.float()
+        del t
+    torch.cuda.empty_cache()
+    ratios["f32"] = full_depth_pass(
+        torch, make_prefill_step(cfg32), make_prefill_step(
+            cfg32, use_kernel=False), params, batch,
+        nudge_up(torch, params["embed"]["tok"]))
+    print(f"[xlstm] full depth ({cfg.n_layers} layers, L {PROMPT}), per leaf "
+          "max |diff| / max |plain|: kernels vs plain, and the plain "
+          "version vs itself with the token embeddings one ulp up (not "
+          "gated but for finite values: see G2 and G3)", flush=True)
+    for path in ratios["bf16"][0]:
+        print(f"[xlstm]   {path}: bf16 kernels {ratios['bf16'][0][path]} "
+              f"nudge {ratios['bf16'][1][path]}; f32 kernels "
+              f"{ratios['f32'][0][path]} nudge {ratios['f32'][1][path]}",
+              flush=True)
+    for dt in ("bf16", "f32"):
+        kp, nn = ratios[dt]
+        print(f"[xlstm] full depth {dt}: worst leaf kernels vs plain "
+              f"{max(kp.values())}, nudge {max(nn.values())}", flush=True)
+
+    first, last = kinds.index(MLSTM), len(kinds) - 1 - kinds[::-1].index(MLSTM)
+    recorded, worst, slstm = layer_walk(torch, cfg32, params, batch, 1e-4,
+                                        "f32", record=(first, last))
+    print(f"[xlstm] G2 float32: all {cfg.n_layers} layers fed the float32 "
+          f"plain run's input, kernels vs plain worst leaf {worst[0]} "
+          f"({worst[1]}; gate 1e-4); sLSTM layers (no kernel) {slstm}",
+          flush=True)
+    errs = []
+    for idx in (first, last):
+        err, *_, k_or, p_or = mlstm_check(
+            torch, f"layer {idx} (full width)", recorded[idx][:5],
+            cfg.mlstm_chunk)
+        errs.append(err)
+        print(f"[xlstm] G1 full width, layer {idx}'s inputs (B {B}, H "
+              f"{cfg.n_heads}, L {PROMPT}, Dh {cfg.d_mlstm // cfg.n_heads}): "
+              f"kernel vs plain max |diff| {err} (gate {MLSTM_TOL}); max "
+              f"|diff| from the float64 oracle: kernel {k_or}, plain {p_or}",
+              flush=True)
+    timing_args = recorded[last][:5]
+    del recorded
+    phase_g3(torch, cfg32, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[xlstm] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches["mlstm_chunkwise_call"], max(errs), ms, timing_args
+
+
+def phase_g3(torch, cfg32, params, batch):
+    """G3: the first period (8 layers) in float64 through the plain
+    versions is the truth; per leaf, the float32 prefill through the
+    kernels (K) and through the plain versions (P), each as max |diff| /
+    max |float64|.  Gate: K <= 10 P + 1e-6."""
+    import dataclasses
+
+    from repro_torch.models.model import _tree_map, make_prefill_step
+    cfg1 = dataclasses.replace(cfg32, n_layers=cfg32.period).validate()
+    p1 = dict(params, scan=_tree_map(lambda t: t[:1], params["scan"]))
+    p64 = _tree_map(lambda t: t.double(), p1)
+    t0 = time.perf_counter()
+    truth = make_prefill_step(dataclasses.replace(
+        cfg1, compute_dtype="float64"), use_kernel=False)(p64, batch)
+    del p64
+    torch.cuda.empty_cache()
+    t64 = time.perf_counter() - t0
+    K = leaf_ratios("G3 kernels", make_prefill_step(cfg1)(p1, batch), truth)
+    P = leaf_ratios("G3 plain", make_prefill_step(cfg1, use_kernel=False)(
+        p1, batch), truth)
+    for path in K:
+        print(f"[xlstm] G3 {path}: K {K[path]} P {P[path]} K/P "
+              f"{K[path] / P[path] if P[path] else float('nan')}", flush=True)
+        if not K[path] <= 10 * P[path] + 1e-6:
+            fail(f"G3: {path} of the float32 kernel prefill strays {K[path]} "
+                 f"from float64, more than 10 x the plain float32 "
+                 f"prefill's {P[path]} + 1e-6")
+    print(f"[xlstm] G3: the first period ({cfg1.n_layers} layers, B "
+          f"{batch['tokens'].shape[0]}, L {PROMPT}) against float64 (its "
+          f"plain run {t64:.1f} s): every leaf K <= 10 P + 1e-6; worst K "
+          f"{max(K.values())}, worst P {max(P.values())}, max K/P "
+          f"{max(K[p] / P[p] for p in K if P[p])}", flush=True)
+
+
+def mlstm_ops(B, H, L, Dh, ck):
+    """Operations the chunkwise mLSTM needs from the zero state: S and
+    (S.D) v over the causal half of each chunk (2 Dh a product pair),
+    q C0^T for every chunk after the first, the state update for all."""
+    n_full, tail = divmod(L, ck)
+    sizes = [ck] * n_full + ([tail] if tail else [])
+    ops = 0
+    for c, n in enumerate(sizes):
+        ops += 2 * 2 * Dh * n * (n + 1) // 2 + 2 * n * Dh * Dh
+        if c:
+            ops += 2 * n * Dh * Dh
+    return B * H * ops
+
+
+def time_mlstm(torch, args, err, n_launches):
+    """mlstm_chunkwise at the slice's shape (the inputs the float32 plain
+    prefill fed its last mLSTM layer) beside its plain version and its
+    bound."""
+    from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_NAMES,
+                                                        plan_mlstm_chunkwise)
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    ck = 256
+    B, H, L, Dh = args[0].shape
+    launch, _ = plan_mlstm_chunkwise(*args, chunk=ck)
+    ms, host = time_launches([launch], 10, warmup=2)
+    per = {name: time_launches([lambda i=i: launch(i)], 10, warmup=1)[0]
+           for i, name in enumerate(KERNEL_NAMES)}
+    plain = time_ms(lambda: mlstm_chunkwise(*args, chunk=ck, use_kernel=False),
+                    reps=3)
+    n_ops = mlstm_ops(B, H, L, Dh, ck)
+    n_bytes = (4 * B * H * L * Dh + 2 * B * H * L + B * H * Dh * Dh
+               + B * H * Dh + B * H) * 4
+    bound, by = bound_ms(n_bytes, n_ops, 0.0)
+    print(f"[timing] mlstm_chunkwise at {XLSTM}'s mLSTM layer (B {B}, H {H}, "
+          f"L {L}, Dh {Dh}, chunk {ck}, float32): kernel {ms} ms (CUDA events "
+          f"over 10 back-to-back calls of its {len(KERNEL_NAMES)} launches; "
+          f"host enqueue {host} ms; each kernel alone, the same way: {per} "
+          f"ms); plain {plain} ms; bound "
+          f"{bound} ms ({by}; {n_ops} operations at the float32 rate, "
+          f"{n_bytes} bytes); {n_ops / (ms * 1e-3) / 1e12} TFLOP/s achieved; "
+          f"at the dense TF32 tensor-core peak the operations take "
+          f"{n_ops / TF32_OPS_PER_S * 1e3} ms; no single PyTorch call "
+          "computes the chunkwise mLSTM, so no library time", flush=True)
+    return dict(
+        name="mlstm_chunkwise", route="cuda",
+        source="src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        replaces="src/repro/kernels/mlstm_chunk/kernel.py:80",
+        launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+
+# --------------------------------------------------------------------------
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2272,6 +2727,7 @@ def main() -> None:
     from repro_torch.kernels.window_agg.kernel import window_agg_call
     from repro_torch.kernels.flash_attention.kernel import flash_attention_call
     from repro_torch.kernels.selective_scan.kernel import selective_scan_call
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunkwise_call
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -2388,6 +2844,17 @@ def main() -> None:
 
     # ---- 17. timings of the model kernels -----------------------------------
     rows += time_model_kernels(torch, dev, m_errs, m_launches)
+
+    # ---- 18. mlstm_chunkwise against its plain version and the oracle --------
+    mlstm_err = phase_mlstm_kernel(torch, dev)
+
+    # ---- 19-20. the xLSTM prefill at full size: G2, G1 at full width, G3 -----
+    x_launches, x_err, _, timing_args = phase_xlstm(
+        torch, dev, m_counters + (mlstm_chunkwise_call,))
+
+    # ---- 21. timings of mlstm_chunkwise and the sLSTM scan -------------------
+    rows.append(time_mlstm(torch, timing_args, max(mlstm_err, x_err),
+                           x_launches))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -16,6 +16,7 @@ from repro_torch.models.config import ModelConfig
 _MODULES: Dict[str, str] = {
     "gemma3-1b": "gemma3_1b",
     "jamba-v0.1-52b": "jamba_v0p1_52b",
+    "xlstm-1.3b": "xlstm_1p3b",
 }
 
 

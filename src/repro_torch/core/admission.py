@@ -35,7 +35,7 @@ and breaker knobs carry one copy per shard (``...``-indexed edits write
 every copy).  These are host operations between rounds: they may read
 a few values back (the ``ok`` of an edge edit, the rows a purge hits).
 The durability plane's ``requeue``/``respool``/``clear_dead_letters``
-edits come with that plane (ROADMAP.md, queue 1, item 7).
+edits come with that plane (ROADMAP.md, queue 1, item 1: durability).
 """
 from __future__ import annotations
 

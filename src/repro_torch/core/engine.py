@@ -1540,7 +1540,8 @@ class StreamEngine:
         if replay:
             raise NotImplementedError(
                 "admit_subscription(replay=True) replays retained history, "
-                "which is the durability plane (ROADMAP.md, queue 1, item 7)")
+                "which is the durability plane (ROADMAP.md, queue 1, item 1: "
+                "durability)")
         try:
             self.registry.subscribe(stream, new_input)
         except CapacityError:
@@ -1633,7 +1634,7 @@ class StreamEngine:
         """Resubmit dead letters: the durability plane, not ported yet."""
         raise NotImplementedError(
             "redeliver() belongs to the durability plane (ROADMAP.md, "
-            "queue 1, item 7)")
+            "queue 1, item 1: durability)")
 
     # ------------------------------------------------------------- readback
     def value_of(self, stream) -> np.ndarray:

@@ -58,8 +58,10 @@ from repro_torch.kernels.round_fuse import ref as rf_ref
 from repro_torch.kernels.round_fuse.ops import apply_programs, exchange_compact
 from repro_torch.kernels.stream_dispatch.ops import onehot_gather
 
-_DURABILITY = "the durability plane (ROADMAP.md, queue 1, item 7)"
-_ELASTIC = "the elastic plane (ROADMAP.md, queue 1, item 10)"
+_DURABILITY = ("the durability plane (ROADMAP.md, queue 1, item 1: "
+               "durability)")
+_ELASTIC = ("the elastic plane (ROADMAP.md, queue 1, item 2: the elastic "
+            "plane)")
 
 
 # --------------------------------------------------------------------------

@@ -126,7 +126,8 @@ def attention_block(cfg, p, x, positions, *, local: bool, cache=None,
     ``use_kernel`` goes to ``flash_attention_blhd``."""
     if cache not in (None, "collect"):
         raise NotImplementedError("decode attention comes with the decode "
-                                  "slice of the port (ROADMAP queue 1)")
+                                  "step (ROADMAP.md, queue 1, item 4: the "
+                                  "model plane, the rest)")
     h = layers.rms_norm(x, p["norm"], cfg.norm_eps, plus_one=cfg.gemma_norm)
     q, k, v = qkv_project(h, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                           d_head=cfg.d_head,

@@ -6,8 +6,9 @@ of (mixer, mlp) layer specs — dense/GQA attention with global or
 sliding-window masks, fine-grained MoE, Mamba, mLSTM and sLSTM mixers —
 plus optional unscanned ``prefix`` layers (e.g. gemma3's leftover local
 layers).  The fields are ``repro``'s, so one configuration describes the
-same model in both packages; the modality and xLSTM fields are kept for
-that, though this package builds only attention, Mamba and MoE layers.
+same model in both packages; the modality fields are kept for that,
+though this package builds only attention, Mamba, MoE, mLSTM and sLSTM
+layers.
 """
 from __future__ import annotations
 
@@ -121,6 +122,10 @@ class ModelConfig:
     @property
     def d_inner(self) -> int:              # mamba inner width
         return self.ssm_expand * self.d_model
+
+    @property
+    def d_mlstm(self) -> int:              # mlstm inner width
+        return int(self.mlstm_proj_factor * self.d_model)
 
     @property
     def dt_rank(self) -> int:

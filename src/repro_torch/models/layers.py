@@ -15,12 +15,12 @@ import torch.nn.functional as F
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
              plus_one: bool = False) -> torch.Tensor:
-    """RMSNorm in float32, cast back to ``x``'s dtype; ``plus_one`` uses
-    the gemma (1+g) convention."""
-    xf = x.float()
+    """RMSNorm in float32 (float64 for a float64 ``x``), cast back to
+    ``x``'s dtype; ``plus_one`` uses the gemma (1+g) convention."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xn = xf * torch.rsqrt(var + eps)
-    g = gamma.float()
+    g = gamma.to(xf.dtype)
     if plus_one:
         g = 1.0 + g
     return (xn * g).to(x.dtype)
@@ -119,18 +119,20 @@ def mlp_plain(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
 def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                   state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal convolution along time, summed in float32.
+    """Depthwise causal convolution along time, summed in float32
+    (float64 for a float64 ``x``).
 
     x: (B, L, D); kernel: (K, D).  ``state``: (B, K-1, D) carried context
     (decode) or None (zero left-pad).  Returns (y, new_state)."""
     B, L, D = x.shape
     K = kernel.shape[0]
+    wd = torch.promote_types(x.dtype, torch.float32)
     if state is None:
         state = torch.zeros((B, K - 1, D), dtype=x.dtype, device=x.device)
     xp = torch.cat([state, x], dim=1)                     # (B, L+K-1, D)
-    y = torch.zeros((B, L, D), dtype=torch.float32, device=x.device)
+    y = torch.zeros((B, L, D), dtype=wd, device=x.device)
     for k in range(K):                                    # K is tiny (4)
-        y = y + xp[:, k:k + L, :].float() * kernel[k].float()
+        y = y + xp[:, k:k + L, :].to(wd) * kernel[k].to(wd)
     new_state = (xp[:, -(K - 1):, :] if K > 1
                  else torch.zeros((B, 0, D), dtype=x.dtype, device=x.device))
     return y.to(x.dtype), new_state

@@ -8,9 +8,10 @@ the repeated pattern's ``scan/s{j}`` layers stacked along a leading
 ``n_scan`` dim.  ``repro`` runs the pattern with ``lax.scan``; here it is
 a Python loop over the stacked leaves, with the caches stacked the same
 way.  Attention layers attend through ``kernels.flash_attention`` and
-Mamba layers scan through ``kernels.selective_scan``: the CUDA kernels
-for tensors on the card, their plain versions on the CPU or with
-``use_kernel=False``.  mLSTM and sLSTM layers (xLSTM) are not ported yet.
+Mamba layers scan through ``kernels.selective_scan`` and mLSTM layers
+through ``kernels.mlstm_chunk``: the CUDA kernels for tensors on the
+card, their plain versions on the CPU or with ``use_kernel=False``.
+sLSTM layers run a plain torch loop over time on every device.
 """
 from __future__ import annotations
 
@@ -19,14 +20,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM,
                                        MOE, SLSTM, ModelConfig)
 from repro_torch.models.params import ParamSpec, Path, count
-
-XLSTM_TODO = ("mLSTM/sLSTM (xLSTM) layers are not ported yet: they come "
-              "with the next slice of the model plane, xLSTM prefill with "
-              "mlstm_chunkwise (ROADMAP queue 1)")
 
 # --------------------------------------------------------------------------
 # Parameter spec tables
@@ -99,12 +96,48 @@ def _mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def _xlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    raise NotImplementedError(XLSTM_TODO)
+def _mlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, Dm, H, K = cfg.d_model, cfg.d_mlstm, cfg.n_heads, cfg.conv_kernel
+    dh = Dm // H
+    pd = cfg.param_dtype
+    # q/k/v are block-diagonal per head (the official mLSTM parameterization)
+    return {
+        "norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "w_up": ParamSpec((D, 2 * Dm), ("d_model", "d_inner2"), "normal", pd),
+        "conv": ParamSpec((K, Dm), (None, "d_inner"), "normal", pd, scale=0.5),
+        "wq": ParamSpec((H, dh, dh), ("heads", None, "mlstm_dh"), "normal", pd),
+        "wk": ParamSpec((H, dh, dh), ("heads", None, "mlstm_dh"), "normal", pd),
+        "wv": ParamSpec((H, dh, dh), ("heads", None, "mlstm_dh"), "normal", pd),
+        "w_if": ParamSpec((Dm, 2 * H), ("d_inner", None), "small", "float32"),
+        "b_if": ParamSpec((2 * H,), (None,), "zeros", "float32"),
+        "head_norm": ParamSpec((Dm,), ("d_inner",), "ones", pd),
+        "w_down": ParamSpec((Dm, D), ("d_inner", "d_model"), "normal", pd),
+    }
+
+
+def _slstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.conv_kernel
+    dh = D // H
+    Fs = cfg.slstm_ff or int(4 * D / 3)
+    pd = cfg.param_dtype
+    return {
+        "norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "conv": ParamSpec((K, D), (None, "d_model"), "normal", pd, scale=0.5),
+        "w_if": ParamSpec((D, 2 * D), ("d_model", None), "normal", pd),
+        "w_zo": ParamSpec((D, 2 * D), ("d_model", None), "normal", pd),
+        "b_gates": ParamSpec((4 * D,), (None,), "zeros", "float32"),
+        "r_gates": ParamSpec((4, H, dh, dh), (None, None, None, None), "normal", pd),
+        "head_norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "w_out": ParamSpec((D, D), ("d_model", None), "normal", pd),
+        "ffn_norm": ParamSpec((D,), ("d_model",), "ones", pd),
+        "w_gate": ParamSpec((D, Fs), ("d_model", "d_ff"), "normal", pd),
+        "w_up": ParamSpec((D, Fs), ("d_model", "d_ff"), "normal", pd),
+        "w_down": ParamSpec((Fs, D), ("d_ff", "d_model"), "normal", pd),
+    }
 
 
 _MIXER_SPECS = {ATTN: _attn_specs, ATTN_LOCAL: _attn_specs,
-                MAMBA: _mamba_specs, MLSTM: _xlstm_specs, SLSTM: _xlstm_specs}
+                MAMBA: _mamba_specs, MLSTM: _mlstm_specs, SLSTM: _slstm_specs}
 
 
 def _layer_specs(cfg: ModelConfig, spec) -> Dict[str, Dict[str, ParamSpec]]:
@@ -174,8 +207,19 @@ def _layer_cache_specs(cfg: ModelConfig, spec, B: int, S: int
         Di, St, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
         return {"conv": ParamSpec((B, K - 1, Di), ("batch", None, "d_inner"), "zeros", cd),
                 "ssm": ParamSpec((B, Di, St), ("batch", "d_inner", None), "zeros", cd)}
-    if mixer in (MLSTM, SLSTM):
-        raise NotImplementedError(XLSTM_TODO)
+    if mixer == MLSTM:
+        Dm, H, K = cfg.d_mlstm, cfg.n_heads, cfg.conv_kernel
+        dh = Dm // H
+        return {"conv": ParamSpec((B, K - 1, Dm), ("batch", None, "d_inner"), "zeros", cd),
+                "C": ParamSpec((B, H, dh, dh), ("batch", "heads", "mlstm_dh", None), "zeros", cd),
+                "n": ParamSpec((B, H, dh), ("batch", "heads", None), "zeros", cd),
+                "m": ParamSpec((B, H), ("batch", "heads"), "zeros", "float32")}
+    if mixer == SLSTM:
+        D, K = cfg.d_model, cfg.conv_kernel
+        st = {"conv": ParamSpec((B, K - 1, D), ("batch", None, "d_model"), "zeros", cd)}
+        for k in ("h", "c", "n", "m"):
+            st[k] = ParamSpec((B, D), ("batch", None), "zeros", "float32")
+        return st
     raise ValueError(mixer)
 
 
@@ -216,8 +260,13 @@ def _apply_layer(cfg, spec, lp, x, positions, collect, cache_pad_to,
         y, nc = ssm.mamba_block(cfg, lp["mixer"], x, None, collect,
                                 use_kernel=use_kernel)
         new_cache = nc if nc is not None else {}
-    elif mixer in (MLSTM, SLSTM):
-        raise NotImplementedError(XLSTM_TODO)
+    elif mixer == MLSTM:
+        y, nc = xlstm.mlstm_block(cfg, lp["mixer"], x, None, collect,
+                                  use_kernel=use_kernel)
+        new_cache = nc if nc is not None else {}
+    elif mixer == SLSTM:
+        y, nc = xlstm.slstm_block(cfg, lp["mixer"], x, None, collect)
+        new_cache = nc if nc is not None else {}
     else:
         raise ValueError(mixer)
     x = x + y

@@ -85,8 +85,9 @@ def build_pred(reg, tenant, prefix: str = "pred") -> Dataflow:
     """Feature composite → model-backed stream → response → decision: not
     ported, since its response path is the serving bridge."""
     raise NotImplementedError(
-        "PRED flows need the serving bridge and the model plane, which are "
-        "not ported yet (ROADMAP.md, queue 1, items 11 and 13)")
+        "PRED flows need the serving bridge (ROADMAP.md, queue 1, item 5: "
+        "the serving bridge and PRED flows), which serves through the "
+        "model plane's decode step (item 4: the model plane, the rest)")
 
 
 class WindowedStats:

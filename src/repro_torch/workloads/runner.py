@@ -79,8 +79,9 @@ def build_suite(n_tenants: int = 12, *,
     versions on any device)."""
     if "pred" in kinds:
         raise NotImplementedError(
-            "PRED flows need the serving bridge and the model plane, which "
-            "are not ported yet (ROADMAP.md, queue 1, items 11 and 13)")
+            "PRED flows need the serving bridge (ROADMAP.md, queue 1, item "
+            "5: the serving bridge and PRED flows), which serves through the "
+            "model plane's decode step (item 4: the model plane, the rest)")
     kinds = [kinds[i % len(kinds)] for i in range(n_tenants)]
     n_streams = sum(_SIDS_PER_KIND[k] for k in kinds) + 2
     n_streams = -(-n_streams // n_shards) * n_shards   # pad to shard multiple
@@ -116,7 +117,7 @@ def wire_pred(suite: IoTSuite, batcher, *, watermark: Optional[int] = None,
     """Attach a serving bridge for PRED flows: not ported yet."""
     raise NotImplementedError(
         "the serving bridge is not ported yet (ROADMAP.md, queue 1, "
-        "item 11)")
+        "item 5: the serving bridge and PRED flows)")
 
 
 def _observe(suite: IoTSuite, sinks, sink_sids) -> int:
@@ -136,7 +137,7 @@ def drive(suite: IoTSuite, K: int = 4, *, scaler=None,
     if scaler is not None:
         raise NotImplementedError(
             "the autoscaler belongs to the elastic plane, which is not "
-            "ported yet (ROADMAP.md, queue 1, item 10)")
+            "ported yet (ROADMAP.md, queue 1, item 2: the elastic plane)")
     eng = suite.engine
     sink_sids = suite.sink_sids
     if stats_sids is None:

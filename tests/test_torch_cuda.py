@@ -505,7 +505,8 @@ def _flat(t):
         if isinstance(t, dict) else [t]
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
 def test_smoke_prefill_on_the_card_equals_the_cpu(dev, arch):
     """The SMOKE model's prefill through the kernels on the card against
     its plain versions on the CPU, from the same weights, in float32."""
@@ -523,3 +524,82 @@ def test_smoke_prefill_on_the_card_equals_the_cpu(dev, arch):
     for g, w in zip(_flat({"l": got[0], "c": got[1]}),
                     _flat({"l": want[0], "c": want[1]})):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+
+
+def _mlstm_inputs(dev, seed, B, H, L, Dh, gates="normal"):
+    """q, k, v ~ N(0, 1); i ~ N(0, 1) and f ~ N(2, 1) as in
+    tests/test_kernels.py, or gates pushed to an extreme."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, H, L, Dh)).astype(np.float32)
+               for _ in "qkv")
+    i = rng.standard_normal((B, H, L)).astype(np.float32)
+    f = (rng.standard_normal((B, H, L)) + 2).astype(np.float32)
+    if gates == "forget near 1":
+        f += 6
+    elif gates == "forget near 0":
+        f -= 10
+    elif gates == "very negative i":
+        i -= 30
+    return [torch.from_numpy(x).to(dev) for x in (q, k, v, i, f)]
+
+
+@pytest.mark.parametrize("B,H,L,Dh,ck,gates", [
+    (1, 2, 32, 16, 8, "normal"), (2, 2, 64, 32, 16, "normal"),
+    (1, 4, 128, 64, 32, "normal"), (1, 1, 64, 128, 64, "normal"),
+    (2, 3, 37, 16, 16, "normal"), (1, 2, 300, 128, 64, "normal"),
+    (1, 1, 200, 1024, 256, "normal"), (1, 2, 96, 64, 32, "forget near 1"),
+    (1, 2, 96, 64, 32, "forget near 0"), (1, 2, 96, 64, 32, "very negative i")])
+def test_mlstm_chunkwise_kernel_matches_plain(dev, B, H, L, Dh, ck, gates):
+    """At the sweep of tests/test_kernels.py, lengths that are no multiple
+    of the chunk (the kernel's last chunk is short, the plain version runs
+    one chunk), Dh up to 1024 and extreme gates: h and the final (C, n,
+    m) within 3e-4 of the plain chunkwise version and of the float64
+    sequential oracle."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import (init_mlstm_state,
+                                                     mlstm_ref)
+    args = _mlstm_inputs(dev, L + Dh, B, H, L, Dh, gates)
+    h, state = mlstm_chunkwise(*args, chunk=ck)
+    torch.cuda.synchronize()
+    wh, wstate = mlstm_chunkwise(*args, chunk=ck, use_kernel=False)
+    rh, rstate = mlstm_ref(*args, *init_mlstm_state(B, H, Dh, device=dev))
+    for want in ((wh, wstate), (rh, rstate)):
+        for g, w in zip((h, *state), (want[0], *want[1])):
+            assert g.dtype == torch.float32 and torch.isfinite(g).all()
+            torch.testing.assert_close(g, w.float(), rtol=3e-4, atol=3e-4)
+
+
+def test_mlstm_chunkwise_kernel_refuses_a_carried_state(dev):
+    """The kernel serves prefill from the zero state; a carried state on
+    the card raises instead of taking the plain path."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import init_mlstm_state
+    args = _mlstm_inputs(dev, 0, 1, 2, 32, 16)
+    state = init_mlstm_state(1, 2, 16, device=dev)
+    with pytest.raises(ValueError, match="zero state"):
+        mlstm_chunkwise(*args, state, chunk=8)
+    h, _ = mlstm_chunkwise(*args, state, chunk=8, use_kernel=False)
+    assert h.shape == (1, 2, 32, 16)
+
+
+def test_xlstm_smoke_prefill_launches_the_kernel_per_mlstm_layer(dev):
+    """One SMOKE prefill (one period: an sLSTM and 7 mLSTM layers) makes
+    the kernel's four launches once per mLSTM layer."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.mlstm_chunk.kernel import (LAUNCHES_PER_CALL,
+                                                        mlstm_chunkwise_call)
+    from repro_torch.models.config import MLSTM
+    from repro_torch.models.model import make_prefill_step, param_specs
+    from repro_torch.models.params import init_params
+    cfg = get_smoke("xlstm-1.3b")
+    params = init_params(param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40))).to(dev)
+    mlstm_chunkwise_call.launches = 0
+    logits, _ = make_prefill_step(cfg)(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    n_mlstm = sum(m == MLSTM for m, _ in cfg.layer_specs)
+    assert n_mlstm == 7
+    assert mlstm_chunkwise_call.launches == LAUNCHES_PER_CALL * n_mlstm
+    assert torch.isfinite(logits).all()

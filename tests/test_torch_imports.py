@@ -50,7 +50,11 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.kernels.flash_attention.kernel",
               "repro_torch.kernels.selective_scan.ref",
               "repro_torch.kernels.selective_scan.ops",
-              "repro_torch.kernels.selective_scan.kernel"):
+              "repro_torch.kernels.selective_scan.kernel",
+              "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
+              "repro_torch.kernels.mlstm_chunk.ref",
+              "repro_torch.kernels.mlstm_chunk.ops",
+              "repro_torch.kernels.mlstm_chunk.kernel"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -1,15 +1,16 @@
 """The slice as a whole: the port's ``make_prefill_step`` against the JAX
-package's, on the CPU, for both model families the port builds.
+package's, on the CPU, for the three model families the port builds.
 
 The parameters are drawn by ``repro.models.init_params`` and handed to
 the port as numpy (``params_from_numpy``), so both packages run the same
 weights on the same prompt; the last position's logits and every cache
-leaf (local rings rolled, global caches, Mamba conv and ssm states) must
-match at 1e-4 in float32.  Also: ``param_specs`` and ``count_params`` of
+leaf (local rings rolled, global caches, Mamba conv and ssm states, the
+mLSTM (conv, C, n, m) and sLSTM (conv, h, c, n, m) states) must match at
+1e-4 in float32.  Also: ``param_specs`` and ``count_params`` of
 the full published configurations equal ``repro``'s, ``cast_params``
 gives every leaf ``repro``'s dtype in bf16 (stacked vectors cast, prefix
 vectors kept float32), the registry and the configurations equal
-``repro``'s, and xLSTM layers raise until their slice lands."""
+``repro``'s, and the mLSTM decode step raises until its slice lands."""
 import dataclasses
 
 import numpy as np
@@ -30,7 +31,7 @@ from repro_torch.models.convert import (caches_to_numpy,  # noqa: E402
                                         params_from_numpy)
 from repro_torch.models.params import init_params  # noqa: E402
 
-ARCHS = ["gemma3-1b", "jamba-v0.1-52b"]
+ARCHS = ["gemma3-1b", "jamba-v0.1-52b", "xlstm-1.3b"]
 
 
 def _leaves(tree, prefix=()):
@@ -123,14 +124,23 @@ def test_registry_and_configs_match_repro():
         for get in ("get_config", "get_smoke"):
             assert dataclasses.asdict(getattr(PC, get)(arch)) == \
                 dataclasses.asdict(getattr(JC, get)(arch))
-    for arch in ("no-such-arch", "xlstm-1.3b"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            PC.get_config(arch)
+    assert set(PC.list_archs()) == set(ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        PC.get_config("no-such-arch")
 
 
-def test_xlstm_layers_raise_until_their_slice():
+def test_mlstm_decode_step_raises_until_its_slice():
+    """A prefill's mLSTM cache cannot be continued yet: ``mlstm_step``
+    comes with the decode slice, and the block says so."""
+    from repro_torch.models import xlstm
     cfg = ModelConfig(**dataclasses.asdict(JC.get_smoke("xlstm-1.3b")))
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        PM.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        PM.cache_specs(cfg, 1, 8)
+    params = JM.init_params(JM.param_specs(JC.get_smoke("xlstm-1.3b")),
+                            jax.random.PRNGKey(3))
+    p = params_from_numpy(jax.tree.map(lambda a: np.asarray(a[0]),
+                                       params["scan"]["s1"]["mixer"]))
+    x = torch.zeros((1, 4, cfg.d_model))
+    _, cache = xlstm.mlstm_block(cfg, p, x, collect=True)
+    assert {p[2] for p in PM.cache_specs(cfg, 1, 4) if p[1] == "s1"} == \
+        set(cache)
+    with pytest.raises(NotImplementedError, match="decode step"):
+        xlstm.mlstm_block(cfg, p, x[:, :1], cache)

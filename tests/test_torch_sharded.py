@@ -346,12 +346,12 @@ def test_sharded_planes_that_wait_raise():
     reg = P.Registry(P.EngineConfig(n_streams=8, batch=4, queue=8,
                                     n_shards=2))
     eng = P.create_engine(reg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="durability plane"):
         eng.snapshot()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="elastic plane"):
         eng.resize(4)
     from repro_torch.distributed import stream_sharding as SS
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="elastic plane"):
         SS.reshard_snapshot({}, {}, 4)
 
 
