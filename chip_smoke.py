@@ -9,7 +9,11 @@ Phases, each printed on its own line:
 
 1. Build the CUDA kernels from the checkout's sources with ``nvcc`` into
    ``build/repro_torch_kernels/`` (all sources at once) and print the
-   build time, ptxas' register/shared-memory report and the card.
+   build time, ptxas' register/shared-memory report and the card; for
+   each head-dim template of the bf16 attention kernel
+   (``flash_attention_wgmma_kernel``) its registers, spills and dynamic
+   shared memory and the HGMMA instructions in its SASS (``cuobjdump
+   -sass``; none fails the run).
 2. Hold each kernel bit for bit against its plain torch version on the
    card: ``sched_pop`` at Q=2048, B=64, C=4, ``fused_round`` at the
    default engine widths, ``window_agg`` at W in {1, 8, 33, 256, 1024}
@@ -126,7 +130,9 @@ Phases, each printed on its own line:
 17. Both model kernels timed at the slice's shapes (CUDA events and the
     profiler's device time) beside their plain versions, their bounds
     (attention's operations at the bf16 tensor-core peak, the scan's
-    bytes) and, for attention, ``scaled_dot_product_attention``; also
+    bytes) and, for attention, ``scaled_dot_product_attention``:
+    attention in bf16 at all three full-width layers, with its achieved
+    TFLOP/s on the 4 B H pairs Dh operations the function needs; also
     attention's float32 time at jamba's layer.
 18. ``mlstm_chunkwise`` (G1) against its plain chunkwise version and the
     float64 sequential oracle, both within 3e-4 + 3e-4 |ref|
@@ -165,6 +171,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -288,8 +295,10 @@ def time_launches(launches, n: int, warmup: int = 10):
 
 def profile_kernels(launches, names, n: int = 50):
     """Device ms per call of each CUDA kernel whose name contains one of
-    ``names``, from ``torch.profiler`` over ``n`` rounds of ``launches``;
-    None for a kernel the profiler did not see."""
+    ``names``, from ``torch.profiler`` over ``n`` rounds of ``launches``:
+    the mean over the kernel events the trace kept (it can drop some of a
+    short window's, so the sum over ``n`` would read low); None for a
+    kernel the profiler did not see."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -300,15 +309,16 @@ def profile_kernels(launches, names, n: int = 50):
                 f()
         torch.cuda.synchronize()
     total = {k: 0.0 for k in names}
-    seen = set()
+    count = {k: 0 for k in names}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         for k in names:
             if k in e.name:
                 total[k] += e.time_range.elapsed_us()
-                seen.add(k)
-    return {k: (total[k] / n / 1e3 if k in seen else None) for k in names}
+                count[k] += 1
+    return {k: (total[k] / count[k] / 1e3 if count[k] else None)
+            for k in names}
 
 
 def bound_ms(n_bytes: float, n_ops: float, chain_ms: float):
@@ -357,6 +367,74 @@ def run_probe(torch, proc, lib) -> float:
     if not per[2] >= 1.0:
         fail(f"probe: {per[2]} cycles per dependent instruction")
     return per[2]
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
+    import shutil
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands.append(str(Path(triton.__file__).parent / "backends" / "nvidia"
+                         / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand and Path(cand).exists():
+            return cand
+    fail("cuobjdump not found (neither the CUDA toolkit's nor Triton's)")
+
+
+WGMMA_KERNEL = re.compile(r"flash_attention_wgmma_kernelILi(\d+)E")
+
+
+def attention_build_report(lib) -> dict:
+    """Phase 1 for the bf16 attention kernel, per head-dim template:
+    ptxas's registers, stack and spills (its ``-Xptxas -v`` log), the
+    dynamic shared memory of a CTA, and the HGMMA (wgmma) instructions in
+    its SASS (``cuobjdump -sass``).  Fails if a template has none."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import bf16_smem_bytes
+    report, cur = {}, None
+    for line in _build.build_log.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            m = WGMMA_KERNEL.search(line)
+            cur = f"<{m.group(1)}>" if m else None
+            if cur:
+                report[cur] = {"smem_bytes": bf16_smem_bytes(int(m.group(1)))}
+        elif cur and "spill stores" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
+            report[cur].update(stack_bytes=stack, spill_stores=stores,
+                               spill_loads=loads)
+        elif cur and "Used" in line:
+            report[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    sass = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass {lib} failed: {sass.stderr.strip()}")
+    for body in re.split(r"\n\s+Function : ", sass.stdout)[1:]:
+        m = WGMMA_KERNEL.search(body.split("\n", 1)[0])
+        if m:
+            key = f"<{m.group(1)}>"
+            report.setdefault(key, {"smem_bytes": bf16_smem_bytes(
+                int(m.group(1)))})["hgmma"] = body.count("HGMMA")
+    if len(report) != 3 or not all(r.get("hgmma") for r in report.values()):
+        fail(f"flash_attention_wgmma_kernel: expected three head-dim "
+             f"templates, each with HGMMA instructions in its SASS; got "
+             f"{report}")
+    for key, r in sorted(report.items(),
+                         key=lambda kv: int(kv[0][1:-1])):
+        print(f"[build] flash_attention_wgmma_kernel{key} (bf16; head-dim "
+              f"template): {r.get('registers', 'not in the log')} "
+              f"registers at launch (setmaxnreg: 240 in its two consumer "
+              f"warpgroups, 24 in the producer's), "
+              f"{r.get('stack_bytes', '?')} bytes stack, "
+              f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} bytes "
+              f"spilled (stores/loads), {r['smem_bytes']} bytes dynamic "
+              f"shared memory, {r['hgmma']} HGMMA instructions in its SASS",
+              flush=True)
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -2178,21 +2256,24 @@ def device_ms(torch, launch, name, n):
     return ev, host, prof
 
 
-def time_model_kernels(torch, dev, errs, launches):
+def time_model_kernels(torch, dev, errs, launches, fa_build):
     """Both model kernels at the slice's shapes (random inputs of the
     main path's shapes, layout and dtype) beside their plain versions,
-    their bounds, and for attention ``scaled_dot_product_attention``."""
+    their bounds, and for attention ``scaled_dot_product_attention``;
+    attention's row carries every full-width layer and ``fa_build``
+    (phase 1's report of the bf16 kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import plan_flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
     from repro_torch.kernels.selective_scan.kernel import plan_selective_scan
     from repro_torch.kernels.selective_scan.ops import selective_scan
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows = []
+    rows, layers = [], {}
     for tag, B, H, KV, L, Dh, win in FA_FULL:
         q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.bfloat16)
         launch, _ = plan_flash_attention(q, k, v, window=win)
-        ms, host, prof = device_ms(torch, launch, "flash_attention_kernel", 20)
+        ms, host, prof = device_ms(torch, launch, "flash_attention_wgmma_kernel",
+                                   20)
         plain = time_ms(lambda: flash_attention_blhd(
             q, k, v, window=win, use_kernel=False), reps=5)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2207,6 +2288,7 @@ def time_model_kernels(torch, dev, errs, launches):
         n_bytes, n_ops = attention_cost(B, H, KV, L, Dh, win, 2)
         t_ops, t_bytes = n_ops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
         bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        tflops = n_ops / (ms * 1e-3) / 1e12
         print(f"[timing] flash_attention at {tag} (B {B}, H {H}, KV {KV}, L "
               f"{L}, Dh {Dh}, window {win}, bf16, (B, L, H, Dh) layout): "
               f"kernel {ms} ms (CUDA events over 20 back-to-back launches; "
@@ -2214,7 +2296,12 @@ def time_model_kernels(torch, dev, errs, launches):
               f"ms; scaled_dot_product_attention {lib} ms (host {lib_host} "
               f"ms); bound {bound} ms ({by}; {n_ops} operations at the bf16 "
               f"tensor-core peak, {n_bytes} bytes) = {bound / ms} of the "
-              f"bound", flush=True)
+              f"bound; {tflops} TFLOP/s achieved (events; "
+              f"{n_ops / (prof * 1e-3) / 1e12} by the profiler) on the "
+              f"4 B H pairs Dh operations the function needs, the tensor "
+              f"cores doing 1.5x that for the split probabilities", flush=True)
+        layers[tag] = dict(ms=ms, profiler_ms=prof, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, tflops=tflops)
         if tag == "gemma3-1b global":
             rows.append(dict(
                 name="flash_attention", route="cuda",
@@ -2223,7 +2310,8 @@ def time_model_kernels(torch, dev, errs, launches):
                 replaces="src/repro/kernels/flash_attention/kernel.py:77",
                 launches=launches["flash_attention_call"],
                 max_abs_err=errs["flash_attention"], ms=ms, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=lib))
+                bound_ms=bound, bound_by=by, library_ms=lib, layers=layers,
+                build=fa_build))
         del q, k, v, qh, kh, vh
     tag, B, H, KV, L, Dh, win = FA_FULL[-1]
     q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.float32)
@@ -2733,14 +2821,15 @@ def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. build -------------------------------------------------------
     probe = start_probe_build()
-    _build.build_all(verbose_ptxas=True)
+    libs = _build.build_all(verbose_ptxas=True)
     print(f"[build] {len(_build.sources())} CUDA sources built with nvcc "
           f"into {_build.BUILD_DIR.relative_to(ROOT)} in "
           f"{_build.build_seconds:.2f} s", flush=True)
     for stem, log in _build.build_log.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Performance" in line:
                 print(f"[build] {stem}: {line.strip()}", flush=True)
+    fa_build = attention_build_report(libs["flash_attention"])
     smi = nvidia_smi()
     clock_hz = max_sm_clock_hz()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -2843,7 +2932,7 @@ def main() -> None:
             m_launches[k] += n
 
     # ---- 17. timings of the model kernels -----------------------------------
-    rows += time_model_kernels(torch, dev, m_errs, m_launches)
+    rows += time_model_kernels(torch, dev, m_errs, m_launches, fa_build)
 
     # ---- 18. mlstm_chunkwise against its plain version and the oracle --------
     mlstm_err = phase_mlstm_kernel(torch, dev)

@@ -477,6 +477,68 @@ def test_flash_attention_kernel_reads_the_model_layout(dev, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _assert_one_ulp(got, want):
+    """bf16 ``got`` within one bf16 unit in the last place of the plain
+    version (2^-7 |want| + 1e-5), chip_smoke.py's full-width gate."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bad = (g - w).abs() > 2 ** -7 * w.abs() + 1e-5
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.numel()} elements "
+                           f"past one bf16 unit; max |diff| "
+                           f"{(g - w).abs().max().item()}")
+
+
+# (B, H, KV, L, Dh, window): windows 63-65 and 127 on 64-key tiles (Dh 256)
+# and on 128-key tiles (Dh 64, 128); lengths 1, 63-65 and 257 (one q block
+# of 128 rows, its second warpgroup, three blocks); Dh 16, 24 (TMA's
+# zero-filled columns), 20 and 77 (copied first); G = H / KV 1, 4 and 8
+BAND_EDGES = [
+    (1, 4, 1, 257, 256, 63), (1, 4, 1, 257, 256, 64),
+    (1, 4, 1, 257, 256, 65), (1, 4, 1, 257, 256, 127),
+    (1, 8, 1, 257, 128, 63), (1, 8, 1, 257, 128, 64),
+    (1, 8, 1, 257, 128, 65), (1, 8, 2, 257, 64, 127),
+    (2, 2, 2, 1, 16, None), (1, 4, 4, 63, 24, None), (1, 4, 1, 64, 16, 32),
+    (2, 8, 1, 65, 24, None), (1, 2, 2, 257, 128, None),
+    (1, 2, 1, 65, 20, None), (1, 4, 2, 100, 77, 50)]
+
+
+@pytest.mark.parametrize("B,H,KV,L,Dh,win", BAND_EDGES)
+def test_flash_attention_bf16_band_edges(dev, B, H, KV, L, Dh, win):
+    """The bf16 (wgmma) kernel against its plain version at the edges of
+    its tiles and of the causal/window band, within one bf16 unit."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    q, k, v = _fa_inputs(dev, L * Dh + H, B, H, KV, L, Dh, torch.bfloat16)
+    got = flash_attention_blhd(q, k, v, window=win)
+    torch.cuda.synchronize()
+    want = flash_attention_blhd(q, k, v, window=win, use_kernel=False)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, L, H * Dh)
+    _assert_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("B,H,KV,L,Dh,win", [
+    (1, 4, 1, 1024, 256, 512), (1, 8, 2, 1024, 128, None),
+    (2, 4, 2, 1024, 64, 300)])
+def test_flash_attention_bf16_one_ulp_per_head_width(dev, B, H, KV, L, Dh,
+                                                     win):
+    """One mid-size shape per head-dim template (64, 128, 256)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    q, k, v = _fa_inputs(dev, Dh, B, H, KV, L, Dh, torch.bfloat16)
+    got = flash_attention_blhd(q, k, v, window=win)
+    torch.cuda.synchronize()
+    _assert_one_ulp(got, flash_attention_blhd(q, k, v, window=win,
+                                              use_kernel=False))
+
+
+@pytest.mark.parametrize("Dh,win", [(256, None), (128, 65), (24, None)])
+def test_flash_attention_bf16_launches_are_bitwise_equal(dev, Dh, win):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    q, k, v = _fa_inputs(dev, 7, 2, 4, 1, 300, Dh, torch.bfloat16)
+    first = flash_attention_call(q, k, v, window=win)
+    second = flash_attention_call(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
 @pytest.mark.parametrize("B,L,Di,S", [(1, 16, 32, 8), (2, 64, 128, 16),
                                       (1, 128, 256, 16), (2, 37, 40, 4),
                                       (1, 300, 96, 32)])

@@ -7,7 +7,10 @@ float32 and 2e-2 in bf16, as there; the wrapper in the model plane's
 cast to q's dtype.  Also an odd length (no multiple of any block), the
 wrapper against ``attend_causal``, and the ``ValueError`` for what
 neither the kernel nor its plain version computes (a logit soft cap, a
-query offset)."""
+query offset).  Two things behind the bf16 CUDA kernel's design, which
+the card alone can run: why it feeds the probabilities to the bf16
+tensor cores as P_hi + P_lo (an emulation in plain torch), and which
+inputs its TMA reads in place and which the wrapper copies first."""
 import numpy as np
 import pytest
 
@@ -21,6 +24,8 @@ from repro.kernels.flash_attention.kernel import \
 from repro.kernels.flash_attention.ref import \
     attention_ref as j_attention_ref  # noqa: E402
 from repro.models.attention import attend_causal as j_attend  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    reads_in_place, tma_operand)
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention_blhd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -123,3 +128,84 @@ def test_kernel_refuses_cpu_tensors():
     q = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_blhd(q, q, q, use_kernel=True)
+
+
+def _over_one_ulp(got, want):
+    """Elements of bf16 ``got`` farther from bf16 ``want`` than one bf16
+    unit in the last place (2^-7 |want| + 1e-5: chip_smoke.py's gate)."""
+    g, w = got.float(), want.float()
+    return int(((g - w).abs() > 2 ** -7 * w.abs() + 1e-5).sum())
+
+
+def test_split_probabilities_hold_the_one_ulp_gate():
+    """The plain version keeps the probabilities P in float32, as the
+    Pallas body does.  A tensor-core P.V takes bf16 P: rounding P to bf16
+    moves ~10 % of the outputs past one bf16 unit, while P_hi = bf16(P)
+    and P_lo = bf16(P - P_hi), two products into one float32 sum, move
+    none (one head, L 512, Dh 64, N(0, 1) bf16 q, k, v; P.V in float64
+    from the chosen P, divided by the float32 P's row sum, rounded to
+    bf16 as the kernel's output is)."""
+    rng = np.random.default_rng(19)
+    L, Dh = 512, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((L, Dh)).astype(
+        np.float32)).bfloat16().float() for _ in range(3))
+    s = (q @ k.T) * Dh ** -0.5
+    s = s.masked_fill(torch.ones(L, L, dtype=torch.bool).triu(1),
+                      float("-inf"))
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    row_sum = p.double().sum(-1, keepdim=True)
+
+    def out(*parts):
+        return (sum(x.double() @ v.double() for x in parts) / row_sum
+                ).to(torch.bfloat16)
+
+    want = out(p)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    assert _over_one_ulp(out(p_hi), want) > want.numel() // 20
+    assert _over_one_ulp(out(p_hi, p_lo), want) == 0
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _misaligned(shape):
+    """A (B, L, heads, Dh) view whose base is 2 bytes off 16."""
+    n = int(np.prod(shape))
+    return _bf16(n + 1)[1:].view(shape)
+
+
+@pytest.mark.parametrize("make,in_place", [
+    (lambda: _bf16((2, 64, 4, 256)), True),        # the model's layout
+    (lambda: _bf16((2, 4, 64, 256)).transpose(1, 2), True),   # (B, H, L, Dh)
+    (lambda: _bf16((2, 64, 4, 24)), True),         # 48-byte head stride
+    (lambda: _bf16((1, 64, 1, 128)), True),        # one kv head, one batch
+    (lambda: _bf16((2, 64, 6, 128))[:, :, 4:5], True),   # a slice of qkv
+    (lambda: _bf16((2, 64, 4, 20)), False),        # 40-byte head stride
+    (lambda: _bf16((2, 4, 64, 77)).transpose(1, 2), False),   # odd Dh
+    (lambda: _misaligned((2, 64, 4, 64)), False),  # base off 16 bytes
+    (lambda: _bf16((2, 64, 32, 4)).transpose(2, 3), False),   # Dh strided
+    (lambda: _bf16((2, 64, 1, 128)).expand(2, 64, 4, 128), False),  # overlap
+], ids=["model", "transposed", "dh24", "one_head", "qkv_slice", "dh20",
+        "dh77", "misaligned", "dh_strided", "broadcast"])
+def test_reads_in_place(make, in_place):
+    """TMA's rules: a contiguous head dim, a 16-byte aligned base, and the
+    outer dims of size > 1, by stride, 16-byte multiples that do not
+    overlap."""
+    assert reads_in_place(make()) is in_place
+
+
+@pytest.mark.parametrize("shape,transpose", [((2, 33, 3, 20), False),
+                                             ((1, 3, 17, 77), True),
+                                             ((2, 9, 2, 5), False)])
+def test_tma_operand_pads_what_it_cannot_read_in_place(shape, transpose):
+    t = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32)).bfloat16()
+    t = t.transpose(1, 2) if transpose else t
+    got = tma_operand(t)
+    assert not reads_in_place(t) and reads_in_place(got)
+    assert got.shape == t.shape and torch.equal(got, t)
+    assert got.stride(2) % 8 == 0 and got.stride(2) >= t.shape[3]
+    fine = _bf16((2, 64, 4, 256))
+    assert tma_operand(fine) is fine
