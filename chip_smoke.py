@@ -13,7 +13,10 @@ Phases, each printed on its own line:
    each head-dim template of the bf16 attention kernel
    (``flash_attention_wgmma_kernel``) its registers, spills and dynamic
    shared memory and the HGMMA instructions in its SASS (``cuobjdump
-   -sass``; none fails the run).
+   -sass``; none fails the run), and the same for each kernel of
+   ``mlstm_chunkwise`` (every one of its six product kernels, the state,
+   intra and out kernels for float32 and for bf16 inputs, must have HGMMA
+   instructions).
 2. Hold each kernel bit for bit against its plain torch version on the
    card: ``sched_pop`` at Q=2048, B=64, C=4, ``fused_round`` at the
    default engine widths, ``window_agg`` at W in {1, 8, 33, 256, 1024}
@@ -138,11 +141,12 @@ Phases, each printed on its own line:
     float64 sequential oracle, both within 3e-4 + 3e-4 |ref|
     (``tests/test_kernels.py``), on the sweep of ``tests/test_kernels.py``,
     lengths that are no multiple of the chunk, Dh up to 1,024 and forget
-    gates near 0 and 1 and very negative input gates.
+    gates near 0 and 1 and very negative input gates, once with float32
+    and once with bf16 q, k, v (the plain version upcasts them).
 19. ``make_prefill_step`` of xlstm-1.3b at its published size (48
     layers: 6 sLSTM, 42 mLSTM; B 2, L 4,096) in bf16, weights and prompts
     from the seed: the counted prefill must launch ``mlstm_chunkwise``'s
-    four kernels once per mLSTM layer (168) and nothing else; per leaf,
+    five kernels once per mLSTM layer (210) and nothing else; per leaf,
     kernels against plain beside the plain version against itself with
     the token embeddings one ulp up, in bf16 and in float32 (gated only
     on finite values: the whole model amplifies a last-bit difference far
@@ -158,9 +162,11 @@ Phases, each printed on its own line:
     the kernels must stray from it at most 10 x the plain float32
     prefill's distance + 1e-6.
 21. ``mlstm_chunkwise`` timed at the slice's shape on the float32 run's
-    last mLSTM inputs beside its plain version and its operations bound
-    (phase 19 also times the six plain sLSTM scans inside one bf16
-    prefill).
+    last mLSTM inputs, and on the same with q, k, v in bf16, each of its
+    five kernels alone too, beside its plain version and its bound (the
+    operations at the bf16 tensor-core peak, or the bytes), with the
+    tensor work of its piece products (phase 19 also times the six plain
+    sLSTM scans inside one bf16 prefill).
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -386,22 +392,24 @@ def cuobjdump() -> str:
 
 
 WGMMA_KERNEL = re.compile(r"flash_attention_wgmma_kernelILi(\d+)E")
+# the mLSTM kernels, <f32> / <bf16> for the templates on the input type
+MLSTM_KERNEL = re.compile(r"(mlstm_[a-z]+_kernel)(?:ILb([01])E)?")
+MLSTM_PRODUCTS = ("mlstm_state_kernel", "mlstm_intra_kernel",
+                  "mlstm_out_kernel")
 
 
-def attention_build_report(lib) -> dict:
-    """Phase 1 for the bf16 attention kernel, per head-dim template:
-    ptxas's registers, stack and spills (its ``-Xptxas -v`` log), the
-    dynamic shared memory of a CTA, and the HGMMA (wgmma) instructions in
-    its SASS (``cuobjdump -sass``).  Fails if a template has none."""
+def ptxas_sass_report(stem, lib, key_of) -> dict:
+    """Per kernel of ``csrc/<stem>.cu`` that ``key_of`` (mangled name ->
+    key or None) names: ptxas's registers, stack and spills (its ``-Xptxas
+    -v`` log) and the HGMMA (wgmma) instructions in its SASS
+    (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import bf16_smem_bytes
     report, cur = {}, None
-    for line in _build.build_log.get("flash_attention", "").splitlines():
+    for line in _build.build_log.get(stem, "").splitlines():
         if "Compiling entry function" in line:
-            m = WGMMA_KERNEL.search(line)
-            cur = f"<{m.group(1)}>" if m else None
+            cur = key_of(line)
             if cur:
-                report[cur] = {"smem_bytes": bf16_smem_bytes(int(m.group(1)))}
+                report.setdefault(cur, {})
         elif cur and "spill stores" in line:
             stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
             report[cur].update(stack_bytes=stack, spill_stores=stores,
@@ -414,11 +422,26 @@ def attention_build_report(lib) -> dict:
     if sass.returncode != 0:
         fail(f"cuobjdump -sass {lib} failed: {sass.stderr.strip()}")
     for body in re.split(r"\n\s+Function : ", sass.stdout)[1:]:
-        m = WGMMA_KERNEL.search(body.split("\n", 1)[0])
-        if m:
-            key = f"<{m.group(1)}>"
-            report.setdefault(key, {"smem_bytes": bf16_smem_bytes(
-                int(m.group(1)))})["hgmma"] = body.count("HGMMA")
+        key = key_of(body.split("\n", 1)[0])
+        if key:
+            report.setdefault(key, {})["hgmma"] = body.count("HGMMA")
+    return report
+
+
+def attention_build_report(lib) -> dict:
+    """Phase 1 for the bf16 attention kernel, per head-dim template:
+    ptxas's registers, stack and spills, the dynamic shared memory of a
+    CTA, and the HGMMA instructions in its SASS.  Fails if a template has
+    none."""
+    from repro_torch.kernels.flash_attention.kernel import bf16_smem_bytes
+
+    def key_of(text):
+        m = WGMMA_KERNEL.search(text)
+        return f"<{m.group(1)}>" if m else None
+
+    report = ptxas_sass_report("flash_attention", lib, key_of)
+    for key, r in report.items():
+        r["smem_bytes"] = bf16_smem_bytes(int(key[1:-1]))
     if len(report) != 3 or not all(r.get("hgmma") for r in report.values()):
         fail(f"flash_attention_wgmma_kernel: expected three head-dim "
              f"templates, each with HGMMA instructions in its SASS; got "
@@ -434,6 +457,39 @@ def attention_build_report(lib) -> dict:
               f"spilled (stores/loads), {r['smem_bytes']} bytes dynamic "
               f"shared memory, {r['hgmma']} HGMMA instructions in its SASS",
               flush=True)
+    return report
+
+
+def mlstm_build_report(lib) -> dict:
+    """Phase 1 for ``mlstm_chunkwise``: each of its kernels (the product
+    kernels per input-type template) with ptxas's registers, stack and
+    spills, its dynamic shared memory and its HGMMA count.  Fails unless
+    each of the six product kernels has HGMMA instructions."""
+    from repro_torch.kernels.mlstm_chunk.kernel import smem_bytes
+
+    def key_of(text):
+        m = MLSTM_KERNEL.search(text)
+        if not m:
+            return None
+        return m.group(1) + ("" if m.group(2) is None else
+                             ("<bf16>" if m.group(2) == "1" else "<f32>"))
+
+    report = ptxas_sass_report("mlstm_chunk", lib, key_of)
+    products = [f"{k}<{t}>" for k in MLSTM_PRODUCTS for t in ("f32", "bf16")]
+    if not all(report.get(k, {}).get("hgmma") for k in products):
+        fail(f"mlstm_chunkwise: expected HGMMA instructions in the SASS of "
+             f"each of {products}; got {report}")
+    regs = " (setmaxnreg: 232 in its two consumer warpgroups, 40 in the " \
+        "producer's)"
+    for key, r in sorted(report.items()):
+        r["smem_bytes"] = smem_bytes() if key in products else 0
+        print(f"[build] {key}: {r.get('registers', 'not in the log')} "
+              f"registers at launch{regs if key in products else ''}, "
+              f"{r.get('stack_bytes', '?')} bytes stack, "
+              f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} bytes "
+              f"spilled (stores/loads), {r['smem_bytes']} bytes dynamic "
+              f"shared memory, {r.get('hgmma', 0)} HGMMA instructions in its "
+              f"SASS", flush=True)
     return report
 
 
@@ -2354,24 +2410,26 @@ def time_model_kernels(torch, dev, errs, launches, fa_build):
 XLSTM = "xlstm-1.3b"
 XLSTM_BATCH = 2
 # (B, H, L, Dh, chunk, gates): the sweep of tests/test_kernels.py:119, then
-# lengths no multiple of the chunk, Dh up to 1024 and extreme gates
+# lengths no multiple of the chunk, Dh up to 1024, extreme gates, and full
+# chunks of 256 rows after the first whose starting state still weighs
 MLSTM_SWEEP = ((1, 2, 32, 16, 8, "normal"), (2, 2, 64, 32, 16, "normal"),
                (1, 4, 128, 64, 32, "normal"), (1, 1, 64, 128, 64, "normal"),
                (2, 3, 37, 16, 16, "normal"), (1, 2, 300, 128, 64, "normal"),
                (2, 1, 333, 1024, 256, "normal"),
                (1, 2, 96, 64, 32, "forget near 1"),
                (1, 2, 96, 64, 32, "forget near 0"),
-               (1, 2, 96, 64, 32, "very negative i"))
+               (1, 2, 96, 64, 32, "very negative i"),
+               (1, 2, 640, 64, 256, "forget near 1"))
 MLSTM_TOL = 3e-4             # tests/test_kernels.py:137
-TF32_OPS_PER_S = 495e12      # H100 SXM tensor cores, dense TF32 (data sheet)
 
 
-def mlstm_inputs(torch, gen, B, H, L, Dh, gates="normal"):
-    """q, k, v ~ N(0, 1); i ~ N(0, 1), f ~ N(2, 1) as tests/test_kernels.py
-    draws them, or gates pushed to an extreme."""
+def mlstm_inputs(torch, gen, B, H, L, Dh, gates="normal", dtype=None):
+    """q, k, v ~ N(0, 1) (in ``dtype``: bf16 for the bf16 prefill's
+    inputs); i ~ N(0, 1), f ~ N(2, 1) as tests/test_kernels.py draws
+    them, or gates pushed to an extreme."""
     dev = gen.device
-    q, k, v = (torch.randn((B, H, L, Dh), generator=gen, device=dev)
-               for _ in range(3))
+    q, k, v = (torch.randn((B, H, L, Dh), generator=gen, device=dev).to(
+        dtype or torch.float32) for _ in range(3))
     i = torch.randn((B, H, L), generator=gen, device=dev)
     f = torch.randn((B, H, L), generator=gen, device=dev) + 2
     if gates == "forget near 1":
@@ -2384,11 +2442,10 @@ def mlstm_inputs(torch, gen, B, H, L, Dh, gates="normal"):
 
 
 def mlstm_check(torch, tag, args, chunk):
-    """The kernel against the plain chunkwise version (gated at
-    MLSTM_TOL, atol + rtol |plain|) and both against the float64
-    sequential oracle (printed; the sweep gates the kernel there too).
-    Returns (max |kernel - plain|, kernel's and plain's max |diff| from
-    the oracle)."""
+    """G1: the kernel against the plain chunkwise version and against the
+    float64 sequential oracle, each gated at MLSTM_TOL (atol + rtol
+    |ref|).  Returns (max |kernel - plain|, kernel's and plain's max
+    |diff| from the oracle)."""
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
     from repro_torch.kernels.mlstm_chunk.ref import init_mlstm_state, mlstm_ref
     B, H, L, Dh = args[0].shape
@@ -2402,29 +2459,29 @@ def mlstm_check(torch, tag, args, chunk):
     rh, rst = mlstm_ref(*args, *init_mlstm_state(B, H, Dh,
                                                  device=args[0].device))
     k_or = p_or = 0.0
-    for g, w, r in zip((h, *st), (wh, *wst), (rh, *rst)):
+    for name, g, w, r in zip("hCnm", (h, *st), (wh, *wst), (rh, *rst)):
+        close_or_fail(f"mlstm_chunkwise {tag} {name} against the float64 "
+                      "oracle", g, r.float(), MLSTM_TOL)
         k_or = max(k_or, (g.double() - r).abs().max().item())
         p_or = max(p_or, (w.double() - r).abs().max().item())
-    return err, (h, st), (rh, rst), k_or, p_or
+    return err, k_or, p_or
 
 
 def phase_mlstm_kernel(torch, dev):
-    """G1 on the sweep: the kernel against its plain version and against
-    the float64 oracle, both within MLSTM_TOL."""
+    """G1 on the sweep, for float32 and for bf16 q, k, v (which the plain
+    version upcasts, so both see the same values): the kernel against its
+    plain version and against the float64 oracle, both within MLSTM_TOL."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     errs = []
-    for B, H, L, Dh, ck, gates in MLSTM_SWEEP:
-        args = mlstm_inputs(torch, gen, B, H, L, Dh, gates)
-        err, (h, st), (rh, rst), k_or, p_or = mlstm_check(
-            torch, (B, H, L, Dh, ck, gates), args, ck)
-        for name, g, r in zip("hCnm", (h, *st), (rh, *rst)):
-            close_or_fail(f"mlstm_chunkwise {(B, H, L, Dh, ck, gates)} {name} "
-                          "against the float64 oracle", g, r.float(), MLSTM_TOL)
-        errs.append(err)
-        print(f"[mlstm] {(B, H, L, Dh, ck, gates)}: kernel vs plain max "
-              f"|diff| {err}; vs the float64 oracle: kernel {k_or}, plain "
-              f"{p_or} (gate {MLSTM_TOL} + {MLSTM_TOL} |ref| on both)",
-              flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, L, Dh, ck, gates in MLSTM_SWEEP:
+            case = (B, H, L, Dh, ck, gates, str(dtype)[6:])
+            args = mlstm_inputs(torch, gen, B, H, L, Dh, gates, dtype)
+            err, k_or, p_or = mlstm_check(torch, case, args, ck)
+            errs.append(err)
+            print(f"[mlstm] {case}: kernel vs plain max |diff| {err}; vs the "
+                  f"float64 oracle: kernel {k_or}, plain {p_or} (gate "
+                  f"{MLSTM_TOL} + {MLSTM_TOL} |ref| on both)", flush=True)
     torch.cuda.empty_cache()
     return max(errs)
 
@@ -2562,13 +2619,17 @@ def full_depth_pass(torch, step_k, step_p, params, batch, nudged):
 def phase_xlstm(torch, dev, counters):
     """xlstm-1.3b at its published size (48 layers, B 2, L 4096; 1 sLSTM and
     7 mLSTM layers a period).  The counted bf16 prefill (its
-    ``mlstm_chunkwise`` launches must be 4 per mLSTM layer); bf16
+    ``mlstm_chunkwise`` launches must be LAUNCHES_PER_CALL per mLSTM
+    layer); bf16
     prefills timed through the kernels and through their plain versions;
     per leaf, kernels against plain beside the plain version against
     itself with the embeddings one ulp up, in bf16 and in float32 (gate:
     finite); G2 in bf16 (0.1) and float32 (1e-4); G1 at full width on
-    the inputs the float32 plain run feeds its first and last mLSTM
-    layer; G3 on the first period against float64."""
+    the inputs the bf16 and the float32 plain runs feed their first and
+    last mLSTM layer (bf16 q, k, v in the layout the model's einsum
+    leaves them); G3 on the first period against float64.  Returns the
+    launches, the worst G1 |diff| and the last mLSTM layer's inputs per
+    input type (for phase 21)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2630,18 +2691,23 @@ def phase_xlstm(torch, dev, counters):
           f"{scans.ms} ms, {sum(scans.ms)} ms of the prefill's "
           f"{ms['with scan timer']} ms; {len(kinds) - len(scans.ms)} "
           f"mLSTM layers' mlstm_chunkwise: see [timing]", flush=True)
-    _, worst, slstm = layer_walk(torch, cfg, params, batch, 0.1, "bf16")
+    first, last = kinds.index(MLSTM), len(kinds) - 1 - kinds[::-1].index(MLSTM)
+    recorded, worst, slstm = layer_walk(torch, cfg, params, batch, 0.1,
+                                        "bf16", record=(first, last))
     print(f"[xlstm] G2 bf16: all {cfg.n_layers} layers fed the bf16 plain "
           f"run's input, kernels vs plain worst leaf {worst[0]} ({worst[1]}; "
           f"gate 0.1); sLSTM layers (no kernel) {slstm}", flush=True)
+    errs = full_width_g1(torch, cfg, recorded, "bf16")
+    timing_args = {"bf16": recorded[last][:5]}
+    del recorded
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     for node_path, t in list(leaves(params)):      # upcast leaf by leaf
         node = params
-        *keys, last = node_path.split("/")
+        *keys, leaf = node_path.split("/")
         for k in keys:
             node = node[k]
-        node[last] = t.float()
+        node[leaf] = t.float()
         del t
     torch.cuda.empty_cache()
     ratios["f32"] = full_depth_pass(
@@ -2662,25 +2728,14 @@ def phase_xlstm(torch, dev, counters):
         print(f"[xlstm] full depth {dt}: worst leaf kernels vs plain "
               f"{max(kp.values())}, nudge {max(nn.values())}", flush=True)
 
-    first, last = kinds.index(MLSTM), len(kinds) - 1 - kinds[::-1].index(MLSTM)
     recorded, worst, slstm = layer_walk(torch, cfg32, params, batch, 1e-4,
                                         "f32", record=(first, last))
     print(f"[xlstm] G2 float32: all {cfg.n_layers} layers fed the float32 "
           f"plain run's input, kernels vs plain worst leaf {worst[0]} "
           f"({worst[1]}; gate 1e-4); sLSTM layers (no kernel) {slstm}",
           flush=True)
-    errs = []
-    for idx in (first, last):
-        err, *_, k_or, p_or = mlstm_check(
-            torch, f"layer {idx} (full width)", recorded[idx][:5],
-            cfg.mlstm_chunk)
-        errs.append(err)
-        print(f"[xlstm] G1 full width, layer {idx}'s inputs (B {B}, H "
-              f"{cfg.n_heads}, L {PROMPT}, Dh {cfg.d_mlstm // cfg.n_heads}): "
-              f"kernel vs plain max |diff| {err} (gate {MLSTM_TOL}); max "
-              f"|diff| from the float64 oracle: kernel {k_or}, plain {p_or}",
-              flush=True)
-    timing_args = recorded[last][:5]
+    errs += full_width_g1(torch, cfg, recorded, "float32")
+    timing_args["float32"] = recorded[last][:5]
     del recorded
     phase_g3(torch, cfg32, params, batch)
     del params
@@ -2688,6 +2743,30 @@ def phase_xlstm(torch, dev, counters):
     print(f"[xlstm] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches["mlstm_chunkwise_call"], max(errs), ms, timing_args
+
+
+def full_width_g1(torch, cfg, recorded, tag):
+    """G1 (mlstm_check) on the mLSTM inputs a plain prefill fed the
+    recorded layers, as it fed them; prints the layout of q, k, v (the
+    kernel reads it in place where ``reads_in_place`` holds).  Returns
+    the max |kernel - plain| per layer."""
+    from repro_torch.kernels.mlstm_chunk.kernel import (input_layout,
+                                                        reads_in_place)
+    errs = []
+    for idx, args in recorded.items():
+        q, k, v, *_ = args
+        B, H, L, Dh = q.shape
+        err, k_or, p_or = mlstm_check(torch, f"{tag} layer {idx} (full "
+                                      "width)", args[:5], cfg.mlstm_chunk)
+        errs.append(err)
+        print(f"[xlstm] G1 full width, {tag}, layer {idx}'s inputs (B {B}, "
+              f"H {H}, L {L}, Dh {Dh}; q, k, v {q.dtype}, (row stride, "
+              f"batch, head matrix strides) {input_layout(q)}, read in place "
+              f"{all(reads_in_place(t) for t in (q, k, v))}): kernel vs "
+              f"plain max |diff| {err}; max |diff| from the float64 oracle: "
+              f"kernel {k_or}, plain {p_or} (gate {MLSTM_TOL} + {MLSTM_TOL} "
+              f"|ref| on both)", flush=True)
+    return errs
 
 
 def phase_g3(torch, cfg32, params, batch):
@@ -2738,41 +2817,139 @@ def mlstm_ops(B, H, L, Dh, ck):
     return B * H * ops
 
 
-def time_mlstm(torch, args, err, n_launches):
-    """mlstm_chunkwise at the slice's shape (the inputs the float32 plain
-    prefill fed its last mLSTM layer) beside its plain version and its
-    bound."""
+def mlstm_piece_ops(B, H, L, Dh, ck, bf16):
+    """The tensor work the kernel's piece products do: six products of
+    each of the four for float32 inputs; for bf16 ones S = q k^T once and
+    the other three three times."""
+    n_full, tail = divmod(L, ck)
+    sizes = [ck] * n_full + ([tail] if tail else [])
+    s = sum(2 * Dh * n * (n + 1) // 2 for n in sizes)        # S, (S.D) v
+    c = sum(2 * n * Dh * Dh for n in sizes)                 # state update
+    qc = c - 2 * sizes[0] * Dh * Dh                          # q C0^T
+    if bf16:
+        return B * H * (s + 3 * (s + c + qc))
+    return B * H * 6 * (2 * s + c + qc)
+
+
+def start_fmad_build():
+    """Start ``nvcc`` on ``mlstm_chunk.cu`` with the build's flags but
+    ``-fmad=true`` (beside the kernels' build); returns (process, lib)."""
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.KERNELS_DIR / "mlstm_chunk" / "csrc" / "mlstm_chunk.cu"
+    lib = _build.BUILD_DIR / "mlstm_chunk-fmad.so"
+    flags = [f if f != "-fmad=false" else "-fmad=true" for f in _build.FLAGS]
+    proc = subprocess.Popen([_build._nvcc(), *flags, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def plan_with_lib(lib, args, ck):
+    """``plan_mlstm_chunkwise`` bound to another build of the library."""
+    import ctypes
+
+    from repro_torch.kernels.mlstm_chunk import kernel as MK
+    own = MK._lib
+    alt = ctypes.CDLL(str(lib))
+    alt.mlstm_chunk_launch.argtypes = own().mlstm_chunk_launch.argtypes
+    alt.mlstm_chunk_launch.restype = ctypes.c_int
+    MK._lib = lambda: alt
+    try:
+        return MK.plan_mlstm_chunkwise(*args, chunk=ck)
+    finally:
+        MK._lib = own
+
+
+def time_mlstm(torch, inputs, err, n_launches, build, fmad):
+    """mlstm_chunkwise at the slice's shape (the inputs the float32 and
+    the bf16 plain prefills fed their last mLSTM layer, bf16 q, k, v in
+    the einsum's layout) beside its plain version and its bound: the
+    larger of the bytes over the HBM rate and the operations at the bf16
+    tensor-core peak (the piece products' tensor work printed beside
+    it).  Also the copy that reading bf16 q, k, v in place saves, and the
+    whole call built with ``-fmad=true`` (``fmad``: the build started in
+    phase 1) in turns with the build's own.  The row carries phase 1's
+    report (``build``)."""
     from repro_torch.kernels.mlstm_chunk.kernel import (KERNEL_NAMES,
+                                                        input_layout,
                                                         plan_mlstm_chunkwise)
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    log, _ = fmad[0].communicate()
+    if fmad[0].returncode != 0:
+        fail(f"nvcc failed on mlstm_chunk.cu with -fmad=true:\n{log}")
     ck = 256
-    B, H, L, Dh = args[0].shape
-    launch, _ = plan_mlstm_chunkwise(*args, chunk=ck)
-    ms, host = time_launches([launch], 10, warmup=2)
-    per = {name: time_launches([lambda i=i: launch(i)], 10, warmup=1)[0]
-           for i, name in enumerate(KERNEL_NAMES)}
-    plain = time_ms(lambda: mlstm_chunkwise(*args, chunk=ck, use_kernel=False),
-                    reps=3)
+    B, H, L, Dh = inputs["float32"][0].shape
     n_ops = mlstm_ops(B, H, L, Dh, ck)
-    n_bytes = (4 * B * H * L * Dh + 2 * B * H * L + B * H * Dh * Dh
-               + B * H * Dh + B * H) * 4
-    bound, by = bound_ms(n_bytes, n_ops, 0.0)
-    print(f"[timing] mlstm_chunkwise at {XLSTM}'s mLSTM layer (B {B}, H {H}, "
-          f"L {L}, Dh {Dh}, chunk {ck}, float32): kernel {ms} ms (CUDA events "
-          f"over 10 back-to-back calls of its {len(KERNEL_NAMES)} launches; "
-          f"host enqueue {host} ms; each kernel alone, the same way: {per} "
-          f"ms); plain {plain} ms; bound "
-          f"{bound} ms ({by}; {n_ops} operations at the float32 rate, "
-          f"{n_bytes} bytes); {n_ops / (ms * 1e-3) / 1e12} TFLOP/s achieved; "
-          f"at the dense TF32 tensor-core peak the operations take "
-          f"{n_ops / TF32_OPS_PER_S * 1e3} ms; no single PyTorch call "
-          "computes the chunkwise mLSTM, so no library time", flush=True)
+    res = {}
+    for tag, a in inputs.items():
+        dtype = a[0].dtype
+        launch, (h, _) = plan_mlstm_chunkwise(*a, chunk=ck)
+        ms, host = time_launches([launch], 10, warmup=2)
+        per = {name: time_launches([lambda i=i: launch(i)], 10, warmup=1)[0]
+               for i, name in enumerate(KERNEL_NAMES)}
+        plain = time_ms(lambda: mlstm_chunkwise(*a, chunk=ck,
+                                                use_kernel=False), reps=3)
+        fmad_launch, (fmad_h, _) = plan_with_lib(fmad[1], a, ck)
+        fmad_launch()
+        torch.cuda.synchronize()
+        fmad_diff = (fmad_h - h).abs().max().item()
+        turns = {"-fmad=false": [], "-fmad=true": []}
+        for name in ("-fmad=false", "-fmad=true", "-fmad=true",
+                     "-fmad=false"):
+            f = launch if name == "-fmad=false" else fmad_launch
+            turns[name].append(time_launches([f], 10, warmup=2)[0])
+        del fmad_launch, fmad_h
+        print(f"[timing] mlstm_chunkwise {tag}: the whole call built with "
+              f"-fmad=false (the build's) {turns['-fmad=false']} ms, with "
+              f"-fmad=true {turns['-fmad=true']} ms (in turns false, true, "
+              f"true, false); max |h(-fmad=true) - h(-fmad=false)| "
+              f"{fmad_diff}", flush=True)
+        copy_ms = None
+        if dtype == torch.bfloat16:
+            copy_ms = time_launches([lambda: [t.contiguous() for t in a[:3]]],
+                                    10, warmup=2)[0]
+            print(f"[timing] mlstm_chunkwise bf16: q, k, v as the prefill "
+                  f"passes them ((row stride, batch, head matrix strides) "
+                  f"{input_layout(a[0])}, read in place); copying them to "
+                  f"(B, H, L, Dh) order, as tma_operand would for a layout "
+                  f"the kernel could not read, takes {copy_ms} ms a call",
+                  flush=True)
+        item = a[0].element_size()
+        n_bytes = (3 * B * H * L * Dh * item + (2 * B * H * L + B * H * L * Dh
+                   + B * H * Dh * Dh + B * H * Dh + B * H) * 4)
+        t_ops = n_ops / BF16_OPS_PER_S * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound, by = (t_ops, "operations") if t_ops >= t_bytes else \
+            (t_bytes, "bytes")
+        pieces = mlstm_piece_ops(B, H, L, Dh, ck, tag == "bf16")
+        print(f"[timing] mlstm_chunkwise at {XLSTM}'s mLSTM layer (B {B}, H "
+              f"{H}, L {L}, Dh {Dh}, chunk {ck}, {tag} q, k, v): kernel {ms} "
+              f"ms (CUDA events over 10 back-to-back calls of its "
+              f"{len(KERNEL_NAMES)} launches; host enqueue {host} ms; each "
+              f"kernel alone, the same way: {per} ms); plain {plain} ms; "
+              f"bound {bound} ms ({by}; {n_ops} operations at the bf16 "
+              f"tensor-core peak {t_ops} ms, {n_bytes} bytes {t_bytes} ms) = "
+              f"{bound / ms} of the bound; {n_ops / (ms * 1e-3) / 1e12} "
+              f"TFLOP/s achieved on the operations needed; the piece "
+              f"products' tensor work {pieces} operations, "
+              f"{pieces / BF16_OPS_PER_S * 1e3} ms at the peak, "
+              f"{pieces / (ms * 1e-3) / 1e12} TFLOP/s of it; no single "
+              f"PyTorch call computes the chunkwise mLSTM, so no library "
+              f"time", flush=True)
+        res[tag] = dict(ms=ms, stages_ms=per, plain_ms=plain, bound_ms=bound,
+                        bound_by=by, piece_ops=pieces, fmad_ms=turns,
+                        layout_copy_ms=copy_ms)
+        del a, launch, h
     return dict(
         name="mlstm_chunkwise", route="cuda",
         source="src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
         replaces="src/repro/kernels/mlstm_chunk/kernel.py:80",
-        launches=n_launches, max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=bound, bound_by=by, library_ms=None)
+        launches=n_launches, max_abs_err=err, ms=res["float32"]["ms"],
+        plain_ms=res["float32"]["plain_ms"],
+        bound_ms=res["float32"]["bound_ms"],
+        bound_by=res["float32"]["bound_by"], library_ms=None, inputs=res,
+        build=build)
 
 
 # --------------------------------------------------------------------------
@@ -2821,6 +2998,7 @@ def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. build -------------------------------------------------------
     probe = start_probe_build()
+    fmad = start_fmad_build()
     libs = _build.build_all(verbose_ptxas=True)
     print(f"[build] {len(_build.sources())} CUDA sources built with nvcc "
           f"into {_build.BUILD_DIR.relative_to(ROOT)} in "
@@ -2830,6 +3008,7 @@ def main() -> None:
             if "Used" in line or "spill" in line or "Performance" in line:
                 print(f"[build] {stem}: {line.strip()}", flush=True)
     fa_build = attention_build_report(libs["flash_attention"])
+    mlstm_build = mlstm_build_report(libs["mlstm_chunk"])
     smi = nvidia_smi()
     clock_hz = max_sm_clock_hz()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -2938,12 +3117,12 @@ def main() -> None:
     mlstm_err = phase_mlstm_kernel(torch, dev)
 
     # ---- 19-20. the xLSTM prefill at full size: G2, G1 at full width, G3 -----
-    x_launches, x_err, _, timing_args = phase_xlstm(
+    x_launches, x_err, _, mlstm_inputs_at = phase_xlstm(
         torch, dev, m_counters + (mlstm_chunkwise_call,))
 
     # ---- 21. timings of mlstm_chunkwise and the sLSTM scan -------------------
-    rows.append(time_mlstm(torch, timing_args, max(mlstm_err, x_err),
-                           x_launches))
+    rows.append(time_mlstm(torch, mlstm_inputs_at, max(mlstm_err, x_err),
+                           x_launches, mlstm_build, fmad))
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Every ``kernels/<name>/csrc/*.cu`` is compiled on first use into its own
-shared library with a plain C interface, under ``build/repro_torch_kernels/``
+shared library with a plain C interface (the headers they share are in
+``kernels/csrc/``), under ``build/repro_torch_kernels/``
 at the root of the checkout (``.gitignore`` lists ``build/``).  All sources
 are compiled at once, one ``nvcc`` process each, started together.  A
 library's file name carries a hash of its sources and flags, so an
@@ -52,7 +53,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256()
-    for f in [src, *sorted(KERNELS_DIR.glob("*/csrc/*.cuh"))]:
+    for f in [src, *sorted(KERNELS_DIR.glob("*/csrc/*.cuh")),
+              *sorted(KERNELS_DIR.glob("csrc/*.cuh"))]:
         h.update(f.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"

@@ -610,13 +610,16 @@ def _mlstm_inputs(dev, seed, B, H, L, Dh, gates="normal"):
     (1, 4, 128, 64, 32, "normal"), (1, 1, 64, 128, 64, "normal"),
     (2, 3, 37, 16, 16, "normal"), (1, 2, 300, 128, 64, "normal"),
     (1, 1, 200, 1024, 256, "normal"), (1, 2, 96, 64, 32, "forget near 1"),
-    (1, 2, 96, 64, 32, "forget near 0"), (1, 2, 96, 64, 32, "very negative i")])
+    (1, 2, 96, 64, 32, "forget near 0"), (1, 2, 96, 64, 32, "very negative i"),
+    (1, 2, 640, 64, 256, "forget near 1")])
 def test_mlstm_chunkwise_kernel_matches_plain(dev, B, H, L, Dh, ck, gates):
     """At the sweep of tests/test_kernels.py, lengths that are no multiple
     of the chunk (the kernel's last chunk is short, the plain version runs
     one chunk), Dh up to 1024 and extreme gates: h and the final (C, n,
     m) within 3e-4 of the plain chunkwise version and of the float64
-    sequential oracle."""
+    sequential oracle.  The last case has two full chunks of 256 rows
+    after which the starting state still weighs (forget gates near 1), so
+    q.n0 of rows 128-255 of a later chunk reaches h."""
     from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
     from repro_torch.kernels.mlstm_chunk.ref import (init_mlstm_state,
                                                      mlstm_ref)
@@ -629,6 +632,69 @@ def test_mlstm_chunkwise_kernel_matches_plain(dev, B, H, L, Dh, ck, gates):
         for g, w in zip((h, *state), (want[0], *want[1])):
             assert g.dtype == torch.float32 and torch.isfinite(g).all()
             torch.testing.assert_close(g, w.float(), rtol=3e-4, atol=3e-4)
+
+
+# (B, H, L, Dh, chunk): the last chunk short (37, 129, 257, 300 rows),
+# chunks of 8-256 rows against the kernel's 128-row tiles, Dh 20 (no
+# multiple of 8: copied into a padded buffer) up to 1,024
+MLSTM_RAGGED = [(2, 3, 37, 16, 16), (1, 2, 129, 32, 64), (1, 1, 257, 64, 128),
+                (1, 2, 300, 128, 256), (1, 1, 40, 20, 8), (1, 1, 333, 1024, 256)]
+
+
+def _mlstm_close(got, want):
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w.float(), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("B,H,L,Dh,ck", MLSTM_RAGGED)
+@pytest.mark.parametrize("layout", ["contiguous", "heads outermost",
+                                    "transposed"])
+def test_mlstm_chunkwise_bf16_inputs_match_plain(dev, B, H, L, Dh, ck,
+                                                 layout):
+    """bf16 q, k, v (the bf16 prefill's) read as they are: contiguous,
+    with the heads outermost (the layout the model's einsum leaves) or as
+    transposed views (copied first), ragged chunks; within 3e-4 of the
+    plain version (which upcasts them) and of the float64 oracle."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import (init_mlstm_state,
+                                                     mlstm_ref)
+    args = _mlstm_inputs(dev, L * 7 + Dh, B, H, L, Dh)
+    qkv = [t.bfloat16() for t in args[:3]]
+    if layout == "heads outermost":
+        qkv = [t.transpose(0, 1).contiguous().transpose(0, 1) for t in qkv]
+    elif layout == "transposed":
+        qkv = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in qkv]
+    args[:3] = qkv
+    got = mlstm_chunkwise(*args, chunk=ck)
+    torch.cuda.synchronize()
+    _mlstm_close(got, mlstm_chunkwise(*args, chunk=ck, use_kernel=False))
+    _mlstm_close(got, mlstm_ref(*args, *init_mlstm_state(B, H, Dh,
+                                                          device=dev)))
+
+
+@pytest.mark.parametrize("B,H,L,Dh,ck", MLSTM_RAGGED)
+def test_mlstm_chunkwise_float32_ragged_chunks(dev, B, H, L, Dh, ck):
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    args = _mlstm_inputs(dev, L * 5 + Dh, B, H, L, Dh)
+    got = mlstm_chunkwise(*args, chunk=ck)
+    torch.cuda.synchronize()
+    _mlstm_close(got, mlstm_chunkwise(*args, chunk=ck, use_kernel=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_chunkwise_launches_are_bitwise_equal(dev, dtype):
+    """The state pass walks its chunks in order and nothing uses atomics:
+    two calls give the same bits.  Chunks of 256 rows (two row blocks,
+    three CTAs of the intra pass each) over L 640, forget gates near 1."""
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunkwise_call
+    args = _mlstm_inputs(dev, 11, 2, 2, 640, 256, "forget near 1")
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    first = mlstm_chunkwise_call(*args, chunk=256)
+    second = mlstm_chunkwise_call(*args, chunk=256)
+    torch.cuda.synchronize()
+    for a, b in zip((first[0], *first[1]), (second[0], *second[1])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_mlstm_chunkwise_kernel_refuses_a_carried_state(dev):
@@ -646,7 +712,7 @@ def test_mlstm_chunkwise_kernel_refuses_a_carried_state(dev):
 
 def test_xlstm_smoke_prefill_launches_the_kernel_per_mlstm_layer(dev):
     """One SMOKE prefill (one period: an sLSTM and 7 mLSTM layers) makes
-    the kernel's four launches once per mLSTM layer."""
+    the kernel's LAUNCHES_PER_CALL launches once per mLSTM layer."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.mlstm_chunk.kernel import (LAUNCHES_PER_CALL,
                                                         mlstm_chunkwise_call)
