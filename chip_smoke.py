@@ -18,7 +18,8 @@ Phases, each printed on its own line:
    intra and out kernels for float32 and for bf16 inputs, must have HGMMA
    instructions).
 2. Hold each kernel bit for bit against its plain torch version on the
-   card: ``sched_pop`` at Q=2048, B=64, C=4, ``fused_round`` at the
+   card: ``sched_pop`` at Q=2048, B=64, C=4 (also at 1,024 tenants and at
+   Q=2049), ``fused_round`` at the
    default engine widths, ``window_agg`` at W in {1, 8, 33, 256, 1024}
    and C in {1, 4} with N a multiple of no CTA's stream count,
    ``exchange_compact`` at the 4-shard smoke shape (4 senders of 1,024
@@ -100,8 +101,9 @@ Phases, each printed on its own line:
     engine, the dispatch kernels' from one more round of phase 12's)
     beside its plain version, and work out its bound from the bytes this
     run's data needs and from its operations (for the two pops, the
-    dependent chain of their selection steps, the card's cycles per
-    dependent instruction measured here by a one-thread probe); for the
+    dependent chain of two selections over the queue, one for the tags and
+    one for the pick, at the card's cycles per dependent instruction
+    measured here by a one-thread probe); for the
     dispatch kernels ``torch.index_select`` of the same rows is timed as
     the nearest library call.
 
@@ -193,7 +195,7 @@ SEED = 20240611
 
 # One thread runs a chain of dependent integer min/xor instructions and
 # reads the SM cycle counter around it: the card's cycles per dependent
-# instruction, the unit of the selection chain's bound.
+# instruction, the unit of the pops' selection chain bound.
 PROBE_CU = r"""
 #include <cuda_runtime.h>
 __global__ void dep_chain(int n, int a, int b, long long* cycles, int* out) {
@@ -526,12 +528,15 @@ def phase_kernels(torch, dev, cfg_defaults):
     rng = np.random.default_rng(SEED)
     errs = {}
     T = cfg_defaults.n_tenants
-    # -- sched_pop at Q=2048, B=64, C=4 (three cases: general, one weight-1
-    # tenant with the largest tags, every slot valid with equal keys)
+    # -- sched_pop at Q=2048, B=64, C=4 (five cases: general, one weight-1
+    # tenant with the largest tags, every slot valid with equal keys, 1,024
+    # tenants, and a queue of 2,049 slots, no power of two)
     Q, B, C = cfg_defaults.queue, cfg_defaults.batch, cfg_defaults.channels
     err = 0.0
-    for case in range(3):
-        p = list(queue_case(rng, Q, C, T, cfg_defaults.n_streams))
+    for case in range(5):
+        Qc = Q + 1 if case == 4 else Q
+        Tc = 1024 if case == 3 else T
+        p = list(queue_case(rng, Qc, C, Tc, cfg_defaults.n_streams))
         if case == 1:
             p[4] = np.ones(Q, np.int32)                  # weight 1 everywhere
         if case == 2:
@@ -547,7 +552,8 @@ def phase_kernels(torch, dev, cfg_defaults):
         err = max(err, compare(f"sched_pop case {case}", got, want))
     errs["sched_pop"] = err
     print(f"[kernels] sched_pop Q={Q} B={B} C={C}: bitwise equal to the "
-          f"plain version (3 cases)", flush=True)
+          f"plain version (5 cases: 1,024 tenants and Q={Q + 1} among "
+          f"them)", flush=True)
 
     # -- fused_round at the default widths, N = 4096
     cfg = cfg_defaults
@@ -1598,14 +1604,19 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
     n_valid = int((out[2] >= 0).sum())
     n_queued = int(st.q_valid.sum())
 
-    # both kernels run B dependent selection steps, each a minimum over Q
-    # candidates (a compare tree of ceil(log2 Q) levels) and then the tag
-    # bump the next step reads: at least that many dependent instructions
-    levels = B * (math.ceil(math.log2(Q)) + 1)
+    # both pops take the first B slots of one static order: a selection
+    # over Q keys for each slot's within-tenant rank (its tag), and one for
+    # the pick, each a compare tree of ceil(log2 Q) levels and one step
+    # more; the step-by-step pop's chain, B such selections, is not the
+    # function's
+    levels = 2 * (math.ceil(math.log2(Q)) + 1)
+    stepwise = B * (math.ceil(math.log2(Q)) + 1)
     chain = levels * dep_cycles / clock_hz * 1e3
     print(f"[bound] selection chain: {levels} dependent instructions x "
           f"{dep_cycles} cycles (probe) at the {clock_hz / 1e6} MHz maximum "
-          f"SM clock = {chain} ms", flush=True)
+          f"SM clock = {chain} ms (the step-by-step pop's chain: {stepwise} "
+          f"instructions, {stepwise * dep_cycles / clock_hz * 1e3} ms)",
+          flush=True)
 
     rows_out = []
     sp_bytes = pop_bytes(Q, B, C)

@@ -12,16 +12,17 @@
 // 35 KB of queue planes at the default queue=2048; the apply reads at most
 // ~1.3 MB of table rows for W = batch * max_out = 1024 work items
 // (in_table, program and constant rows, co-input values) — under half a
-// microsecond of HBM time.  What costs is the serial 64-step pop chain
-// inside one CTA (see sched_pop.cu) and the latency of each of the two
-// launches.
+// microsecond of HBM time.  What costs is the pop's one CTA — the shared-
+// memory traffic of its two sorts of the Q slots (see sched_pop.cu; the
+// pop is one static order, not `batch` dependent argmins) — and the
+// latency of each of the two launches.
 //
-// What the simple design does about it:
-//   (a) pop_dispatch — one CTA runs the selection pop of
-//       sched_pop/csrc/pop_select.cuh with every queue plane in shared
-//       memory, then expands each winner to its out_table row with direct
-//       loads: targets are -1 for invalid or revoked events, exactly
-//       ref.pop_dispatch_ref.
+// What the design does about it:
+//   (a) pop_dispatch — one CTA runs the sorted-selection pop of
+//       sched_pop/csrc/pop_select.cuh with the slots' sort words and slot
+//       lists in shared memory, then expands each winner to its out_table
+//       row with direct loads: targets are -1 for invalid or revoked
+//       events, exactly ref.pop_dispatch_ref.
 //   (b) apply_programs — a grid of 128-thread CTAs, one thread per work
 //       item, and a second grid dimension over shards: shard s reads its
 //       own table slice (n_tab rows at offset s * n_tab) and work items,
@@ -153,7 +154,7 @@ __device__ float vm_op(int op, float av, float bv, float dv, float ca) {
 
 // ---- (a) pop + dispatch ----------------------------------------------------
 
-__global__ void pop_dispatch_kernel(
+__global__ void __launch_bounds__(pop_select::kThreads) pop_dispatch_kernel(
     const int* __restrict__ prio, const int* __restrict__ seq,
     const uint8_t* __restrict__ valid, const int* __restrict__ tenant,
     const int* __restrict__ weight, const int* __restrict__ sid,
@@ -308,9 +309,8 @@ extern "C" int pop_dispatch_launch(
   const cudaError_t err = pop_select::opt_in_smem(
       (const void*)pop_dispatch_kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  int threads = ((Q + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  pop_dispatch_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+  pop_dispatch_kernel<<<1, pop_select::threads_for(Q), smem,
+                        (cudaStream_t)stream>>>(
       (const int*)prio, (const int*)seq, (const uint8_t*)valid,
       (const int*)tenant, (const int*)weight, (const int*)sid, (const int*)ts,
       (const uint32_t*)vals, (const int*)out_table, (const uint8_t*)active, Q,

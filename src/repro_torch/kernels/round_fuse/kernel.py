@@ -5,9 +5,9 @@ package's Pallas ``fused_round_call``, ``apply_programs_call`` and
 The Pallas megakernel held the whole (W, R) register file in VMEM, which
 one SM's shared memory cannot hold at the default widths, so the fused
 round is two launches on PyTorch's current stream: ``pop_dispatch`` (one
-CTA: selection pop + fan-out) and ``apply_programs`` (a grid over the W
-work items: co-input fetch, VM, window gate), both in
-``csrc/fused_round.cu``.  ``apply_programs_call`` launches the second
+CTA: the sorted-selection pop of ``sched_pop/csrc/pop_select.cuh``, then
+the fan-out) and ``apply_programs`` (a grid over the W work items:
+co-input fetch, VM, window gate), both in ``csrc/fused_round.cu``.  ``apply_programs_call`` launches the second
 alone for the sharded round's post-exchange apply (every shard in one
 launch), and ``exchange_compact_call`` the compaction of
 ``csrc/exchange_compact.cu``.  See the notes at the top of the sources

@@ -7,21 +7,25 @@
 // What bounds it on this card: not bandwidth.  At the default queue=2048
 // the kernel must read about 35 KB (the priority, seq, tenant and weight
 // int32 planes and the valid byte of every slot, then the 64 winners' sid,
-// ts and payload) — some 10 ns of HBM time.  The work is a serial chain of
-// `batch` (64) selection steps, each a full-queue argmin whose result the
-// next step depends on: at least ceil(log2 Q) + 1 = 12 dependent
-// instructions per step (a compare tree over 2,048 candidates, then the
-// tag bump), about 1.6 us at 4 cycles each and 1.98 GHz.  The simple
-// design pays more per step: two block barriers and two shuffle trees.
+// ts and payload) -- some 10 ns of HBM time.  Nor is the pop a chain of
+// `batch` dependent argmins: it takes the first B slots of one static
+// order (pop_select.cuh), so its least dependent chain is that of two
+// selections over Q keys, about 2 * (ceil(log2 Q) + 1) compare levels.
+// What the CTA pays is shared memory: the merge levels' binary searches
+// and window loads read 16-byte words at data-dependent slots, whose bank
+// conflicts and dependent loads set each level's time.
 //
-// What the simple design does about it: one CTA of up to 1024 threads
-// keeps every plane the loop touches in shared memory (about 43 KB at
-// Q=2048, opted in above 48 KB), so each step costs shared-memory
-// latency only, and the winners' sid/ts/valid/payload rows are gathered
-// with direct loads after the loop.  Payload floats are copied as their
-// 32-bit patterns, so -0.0 and NaN payloads survive.  Threads with no
-// slot left start each reduction from the all-INT_MAX sentinel, above
-// every real slot (the role of the Pallas kernel's retired pad lanes).
+// What the design does about it: one CTA of Q / 8 threads (at most 512)
+// keeps each slot's sort word, the two slot lists and the valid bytes in
+// shared memory (21 bytes a slot, 43 KB at Q=2048, opted in above 48 KB)
+// and runs the two sorts of pop_select.cuh there: runs of eight slots
+// sorted in registers (loaded in a rotated order that spreads a quarter
+// warp over the banks), then merge-path levels that merge eight words of
+// each run in registers, one barrier a level (8 a sort at Q=2048; the
+// second sort keeps only the first B of each run).  The winners'
+// sid/ts/valid/payload rows are then gathered with direct loads.  Payload
+// floats are copied as their 32-bit patterns, so -0.0 and NaN payloads
+// survive.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -30,19 +34,16 @@
 
 namespace {
 
-__global__ void sched_pop_kernel(const int* __restrict__ prio,
-                                 const int* __restrict__ seq,
-                                 const uint8_t* __restrict__ valid,
-                                 const int* __restrict__ tenant,
-                                 const int* __restrict__ weight,
-                                 const int* __restrict__ sid,
-                                 const int* __restrict__ ts,
-                                 const uint32_t* __restrict__ vals, int Q,
-                                 int C, int B, int* __restrict__ take,
-                                 int* __restrict__ p_sid,
-                                 int* __restrict__ p_ts,
-                                 uint8_t* __restrict__ p_valid,
-                                 uint32_t* __restrict__ p_vals) {
+__global__ void __launch_bounds__(pop_select::kThreads)
+    sched_pop_kernel(const int* __restrict__ prio, const int* __restrict__ seq,
+                     const uint8_t* __restrict__ valid,
+                     const int* __restrict__ tenant,
+                     const int* __restrict__ weight,
+                     const int* __restrict__ sid, const int* __restrict__ ts,
+                     const uint32_t* __restrict__ vals, int Q, int C, int B,
+                     int* __restrict__ take, int* __restrict__ p_sid,
+                     int* __restrict__ p_ts, uint8_t* __restrict__ p_valid,
+                     uint32_t* __restrict__ p_vals) {
   extern __shared__ __align__(16) unsigned char smem[];
   const pop_select::Planes p = pop_select::carve(smem, Q, B);
   pop_select::run(p, Q, B, prio, seq, valid, tenant, weight);
@@ -72,9 +73,8 @@ extern "C" int sched_pop_launch(const void* prio, const void* seq,
   const cudaError_t err = pop_select::opt_in_smem(
       (const void*)sched_pop_kernel, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  int threads = ((Q + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  sched_pop_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+  sched_pop_kernel<<<1, pop_select::threads_for(Q), smem,
+                     (cudaStream_t)stream>>>(
       (const int*)prio, (const int*)seq, (const uint8_t*)valid,
       (const int*)tenant, (const int*)weight, (const int*)sid, (const int*)ts,
       (const uint32_t*)vals, Q, C, B, (int*)take, (int*)p_sid, (int*)p_ts,

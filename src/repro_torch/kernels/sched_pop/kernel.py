@@ -1,10 +1,12 @@
 """Launcher of the CUDA scheduler pop (``csrc/sched_pop.cu``), the Hopper
 port of the JAX package's Pallas ``sched_pop_call``.
 
-One CTA keeps the queue's key/tag/seq/tenant/weight/valid planes in
-shared memory and runs the ``batch`` selection steps there; see the note
-at the top of the source for what bounds it.  The library is built with
-``nvcc`` at the first call (``kernels/_build.py``).
+The pop takes the first ``batch`` slots of one static order, (key,
+virtual tag, seq, slot), so one CTA computes it as two sorts of the queue
+in shared memory (``csrc/pop_select.cuh``): the first ranks each valid slot
+within its tenant, which gives its tag, the second orders the slots by the
+full key.  See the note at the top of the source for what bounds it.  The
+library is built with ``nvcc`` at the first call (``kernels/_build.py``).
 """
 from __future__ import annotations
 
@@ -29,14 +31,16 @@ def _lib():
 
 def smem_bytes(Q: int, batch: int) -> int:
     """Shared memory the pop of a Q-slot queue takes (the layout of
-    ``csrc/pop_select.cuh``: 33 16-byte reduction slots, five int32
-    planes, two (batch,) int32 arrays and one byte per slot)."""
-    return 16 * 33 + 4 * (5 * Q + 2 * batch) + Q
+    ``csrc/pop_select.cuh``): per slot a 16-byte sort word, two 16-bit
+    entries of the slot lists the sorts permute and the valid byte; per
+    pick one int32; 32 int32 for the rank scan."""
+    return 21 * Q + 4 * (batch + 32)
 
 
 def check_fits(Q: int, batch: int) -> None:
-    """Raise for a queue whose planes do not fit one CTA's shared memory
-    (about 11,000 slots); there is no fallback."""
+    """Raise for a queue whose planes do not fit one CTA's shared memory:
+    at most 11,050 slots at batch 64 (``(SMEM_LIMIT - 4 * (batch + 32))
+    // 21``), 9,292 at batch == Q; there is no fallback."""
     need = smem_bytes(Q, batch)
     if need > SMEM_LIMIT:
         raise ValueError(f"queue of {Q} slots needs {need} B of shared "

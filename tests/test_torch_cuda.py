@@ -42,33 +42,62 @@ def _assert_bits(got, want):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-def _queue(rng, Q, C, T, N):
+def _queue(rng, Q, C, T, N, kind="mixed"):
+    """Queue planes (prio, seq, valid, tenant, w_slot, sid, vals, ts) with
+    ``w_slot = weight[tenant]``; ``kind`` picks an edge of the sorted
+    selection: "invalid" (no valid slot), "int_max" (valid slots at
+    priority 2**31 - 1 beside invalid ones of equal seq), "negative"
+    (negative priorities and seqs tied across tenants)."""
     vals = rng.standard_normal((Q, C)).astype(np.float32)
     vals.ravel()[rng.integers(0, Q * C, 3)] = [np.nan, -0.0, np.inf]
     tenant = rng.integers(0, T, Q).astype(np.int32)
-    return [rng.choice([0, 1, -2, 2**31 - 1], Q).astype(np.int32),
-            rng.integers(-3, 20, Q).astype(np.int32), rng.random(Q) < 0.7,
-            tenant,
+    prio = rng.choice([0, 1, -2, 2**31 - 1], Q).astype(np.int32)
+    seq = rng.integers(-3, 20, Q).astype(np.int32)
+    valid = rng.random(Q) < 0.7
+    if kind == "invalid":
+        valid[:] = False
+    if kind == "int_max":
+        prio = np.where(rng.random(Q) < 0.8, 2**31 - 1, 1).astype(np.int32)
+        seq = rng.integers(0, 3, Q).astype(np.int32)
+    if kind == "negative":
+        prio = rng.choice([-5, -2], Q).astype(np.int32)
+        seq = rng.integers(-3, -1, Q).astype(np.int32)
+    return [prio, seq, valid, tenant,
             rng.choice([0, 1, 5, 1 << 15], T).astype(np.int32)[tenant],
             rng.integers(0, N + 3, Q).astype(np.int32), vals,
             rng.integers(-9, 9, Q).astype(np.int32)]
 
 
-@pytest.mark.parametrize("Q,B,C", [(5, 3, 1), (100, 16, 3), (2048, 64, 4)])
-def test_sched_pop_kernel_matches_plain(dev, Q, B, C):
+# the edges of the sorted selection: B == Q, no valid slot, queues that are
+# no power of two, one tenant, 1,024 tenants, INT_MAX priorities beside
+# invalid slots, negative ties, and the largest queues check_fits admits
+POP_EDGES = [(200, 200, 5, "mixed"), (300, 64, 4, "invalid"),
+             (2047, 64, 16, "mixed"), (2049, 64, 16, "mixed"),
+             (500, 64, 1, "mixed"), (2048, 64, 1024, "mixed"),
+             (256, 64, 6, "int_max"), (256, 64, 8, "negative"),
+             (11050, 64, 16, "mixed"), (9292, 9292, 16, "mixed")]
+
+
+@pytest.mark.parametrize("Q,B,C,T,kind", [
+    (5, 3, 1, 3, "mixed"), (100, 16, 3, 3, "mixed"),
+    (2048, 64, 4, 3, "mixed")] + [(Q, B, 2, T, kind)
+                                  for Q, B, T, kind in POP_EDGES])
+def test_sched_pop_kernel_matches_plain(dev, Q, B, C, T, kind):
     rng = np.random.default_rng(Q)
     prio, seq, valid, tenant, w, sid, vals, ts = (
-        torch.from_numpy(a).to(dev) for a in _queue(rng, Q, C, 3, 64))
+        torch.from_numpy(a).to(dev) for a in _queue(rng, Q, C, T, 64, kind))
     got = sched_pop_call(prio, seq, valid, tenant, w, sid, vals, ts, B)
     want = sched_pop(prio, seq, valid, tenant, w, sid, vals, ts, B,
                      use_kernel=False)
     _assert_bits(got, want)
 
 
-@pytest.mark.parametrize("Q,N,C,B,F,M,L", [(32, 16, 1, 2, 2, 2, 4),
-                                           (200, 40, 4, 8, 3, 4, 12),
-                                           (300, 200, 3, 16, 9, 5, 20)])
-def test_fused_round_kernel_matches_plain(dev, Q, N, C, B, F, M, L):
+@pytest.mark.parametrize("Q,N,C,B,F,M,L,T,kind", [
+    (32, 16, 1, 2, 2, 2, 4, 4, "mixed"),
+    (200, 40, 4, 8, 3, 4, 12, 4, "mixed"),
+    (300, 200, 3, 16, 9, 5, 20, 4, "mixed")] + [
+    (Q, 40, 2, B, 3, 4, 12, T, kind) for Q, B, T, kind in POP_EDGES])
+def test_fused_round_kernel_matches_plain(dev, Q, N, C, B, F, M, L, T, kind):
     rng = np.random.default_rng(Q + N)
     cfg = EngineConfig(n_streams=N, channels=C, max_in=M, max_out=F,
                        batch=B, queue=Q, prog_len=L, n_consts=6, n_temps=4)
@@ -87,7 +116,7 @@ def test_fused_round_kernel_matches_plain(dev, Q, N, C, B, F, M, L):
               rng.standard_normal((N, 6)).astype(np.float32),
               rng.random(N) < 0.7, rng.random(N) < 0.85, values,
               rng.integers(-5, 30, N).astype(np.int32)]
-    q = [torch.from_numpy(a).to(dev) for a in _queue(rng, Q, C, 4, N)]
+    q = [torch.from_numpy(a).to(dev) for a in _queue(rng, Q, C, T, N, kind)]
     t = [torch.from_numpy(a).to(dev) for a in tables]
     before = fused_round_call.launches
     got = fused_round_call(*q, B, *t, layout)

@@ -150,3 +150,89 @@ def test_wrapper_on_cpu_takes_the_plain_version_only():
         sched_pop(*planes, 4, use_kernel=True)
     take, _ = sched_pop(*planes, 4, use_kernel=False)
     assert take.dtype == torch.int32 and take.shape == (4,)
+
+
+def _edge(name):
+    """Queue planes for one of the cases the sorted-selection kernel
+    meets: ``(Q, T, B, prio, seq, valid, tenant, weight)``, the weight per
+    tenant (``w_slot = weight[tenant]``, as the engine builds it)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    Q, T, B = {"batch_is_queue": (200, 5, 200), "all_invalid": (300, 4, 64),
+               "queue_2047": (2047, 16, 64), "queue_2049": (2049, 16, 64),
+               "one_tenant": (500, 1, 64), "tenants_1024": (2048, 1024, 64),
+               "int_max_beside_invalid": (256, 6, 64),
+               "negative_ties": (256, 8, 64)}[name]
+    prio = rng.choice([0, 0, 1, 3, -2, 2**31 - 1], Q).astype(np.int32)
+    seq = rng.integers(-5, Q // 4, Q).astype(np.int32)
+    valid = rng.random(Q) < 0.7
+    if name == "all_invalid":
+        valid[:] = False
+    if name == "int_max_beside_invalid":
+        # valid slots at the largest priority share key INT_MAX and seqs
+        # with invalid ones: they order by tag, then seq, then slot
+        prio = np.where(rng.random(Q) < 0.8, 2**31 - 1, 1).astype(np.int32)
+        seq = rng.integers(0, 3, Q).astype(np.int32)
+    if name == "negative_ties":
+        prio = rng.choice([-5, -2], Q).astype(np.int32)
+        seq = rng.integers(-3, -1, Q).astype(np.int32)
+    tenant = rng.integers(0, T, Q).astype(np.int32)
+    weight = rng.choice([0, 1, 2, 7, 2**15], T).astype(np.int32)
+    if name == "one_tenant":
+        weight[:] = 1
+    return Q, T, B, prio, seq, valid, tenant, weight
+
+
+@pytest.mark.parametrize("jax_path", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("name", ["batch_is_queue", "all_invalid",
+                                  "queue_2047", "queue_2049", "one_tenant",
+                                  "tenants_1024", "int_max_beside_invalid",
+                                  "negative_ties"])
+def test_pop_edges_match_jax(name, jax_path):
+    """The port's plain pop, its lexsort ``_pop`` and ``repro``'s pop (its
+    ref and its Pallas kernel in interpret mode) pick the same slots and
+    payload bits on the edges of the sorted selection: B == Q, no valid
+    slot, queues that are no power of two, one tenant and 1,024 tenants,
+    valid INT_MAX priorities beside invalid slots of equal seq, negative
+    priorities and seqs tied across tenants."""
+    Q, T, B, prio, seq, valid, tenant, weight = _edge(name)
+    rng = np.random.default_rng(Q + B)
+    sid = np.arange(Q, dtype=np.int32)
+    ts = rng.integers(-9, 9, Q).astype(np.int32)
+    vals = rng.standard_normal((Q, 2)).astype(np.float32)
+    vals[rng.random((Q, 2)) < 0.1] = -0.0
+    planes = (prio, seq, valid, tenant, weight[tenant], sid, vals, ts)
+    kw = (dict(use_kernel=False) if jax_path == "ref"
+          else dict(use_kernel=True, interpret=True))
+    take_j, pop_j = j_sched_pop(*[jnp.asarray(a) for a in planes], B, **kw)
+    take_p, pop_p = sched_pop(*[torch.from_numpy(a) for a in planes], B)
+    np.testing.assert_array_equal(np.asarray(take_j), take_p.numpy())
+    for a, b, what in zip(pop_j, pop_p, ("sid", "vals", "ts", "valid")):
+        np.testing.assert_array_equal(_bits(a), _bits(b.numpy()),
+                                      err_msg=what)
+    # the lexsort oracle on the same queue (slot s holds sid s)
+    pc = PConfig(n_streams=Q, n_tenants=T, queue=Q, batch=B, channels=2)
+    q = (sid, seq, valid, ts, vals, np.zeros(Q, np.int32))
+    _, lex = PE._pop(_port_state(pc, q), torch.from_numpy(prio), B,
+                     torch.from_numpy(tenant), torch.from_numpy(weight),
+                     "lexsort")
+    np.testing.assert_array_equal(lex[0].numpy(), take_p.numpy())
+    for a, b in zip(lex[1:3] + lex[4:], pop_p[1:]):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b.numpy()))
+
+
+@pytest.mark.parametrize("batch,largest", [(64, 11050), (1, 11062),
+                                           (None, 9292)])
+def test_smem_bytes_admits_the_stated_limit(batch, largest):
+    """The kernel's shared-memory layout (21 bytes a slot, 4 a pick, 128
+    for the rank scan) admits the largest queue its docstring states and
+    refuses the next (``batch=None``: a pop of the whole queue)."""
+    from repro_torch.kernels.sched_pop.kernel import (SMEM_LIMIT, check_fits,
+                                                      smem_bytes)
+    for Q, ok in ((largest, True), (largest + 1, False)):
+        B = Q if batch is None else batch
+        assert (smem_bytes(Q, B) <= SMEM_LIMIT) == ok
+        if ok:
+            check_fits(Q, B)
+        else:
+            with pytest.raises(ValueError):
+                check_fits(Q, B)
