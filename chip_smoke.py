@@ -20,13 +20,20 @@ Phases, each printed on its own line:
 2. Hold each kernel bit for bit against its plain torch version on the
    card: ``sched_pop`` at Q=2048, B=64, C=4 (also at 1,024 tenants and at
    Q=2049), ``fused_round`` at the
-   default engine widths, ``window_agg`` at W in {1, 8, 33, 256, 1024}
+   default engine widths (random programs, programs whose last
+   instruction is not a NOP, all-NOP programs, and 32 different opcodes
+   across every warp at each pc, on the apply's per-event planes of
+   rep = F items), ``window_agg`` at W in {1, 8, 33, 256, 1024}
    and C in {1, 4} with N a multiple of no CTA's stream count,
    ``exchange_compact`` at the 4-shard smoke shape (4 senders of 1,024
-   items, 4 x 1,024 slots) and at D in {1, 2, 3, 8} with overflow,
-   every item to one shard, unrouted lanes and W not a multiple of the
-   block, ``apply_programs`` at 4 shards x 4,096 items against 1,024
-   table rows and a 4,096-row snapshot and at smaller odd shapes, on
+   items, 4 x 1,024 slots) and at D in {1, 2, 3, 8, 32} with overflow,
+   every item to one shard, unrouted lanes, W of 1 and of 5,000, slots
+   no multiple of the 256-slot tile and C in {1, 3, 4},
+   ``apply_programs`` at 4 shards x 4,096 items against 1,024
+   table rows and a 4,096-row snapshot and at smaller odd shapes (W no
+   multiple of the CTA's items; the program kinds above; C in {1, 3, 4};
+   the longest program whose CTA fits the shared-memory limit, with the
+   launcher's shared bytes checked against the wrapper's fit check), on
    adversarial inputs (NaN, -0.0, subnormals, empty and full windows),
    ``onehot_gather`` on the sweeps of ``tests/test_kernels.py``, the
    (4096, 16) out-table with 64 ids, the (4096, 4) value snapshot with
@@ -102,8 +109,10 @@ Phases, each printed on its own line:
     beside its plain version, and work out its bound from the bytes this
     run's data needs and from its operations (for the two pops, the
     dependent chain of two selections over the queue, one for the tags and
-    one for the pick, at the card's cycles per dependent instruction
-    measured here by a one-thread probe); for the
+    one for the pick, and for the apply the longest non-NOP program among
+    the items, each at the card's cycles per dependent instruction
+    measured here by a one-thread probe; the terms and which binds are
+    printed); for the
     dispatch kernels ``torch.index_select`` of the same rows is timed as
     the nearest library call.
 
@@ -195,7 +204,8 @@ SEED = 20240611
 
 # One thread runs a chain of dependent integer min/xor instructions and
 # reads the SM cycle counter around it: the card's cycles per dependent
-# instruction, the unit of the pops' selection chain bound.
+# instruction, the unit of the pops' selection chain and the apply's VM
+# chain bounds.
 PROBE_CU = r"""
 #include <cuda_runtime.h>
 __global__ void dep_chain(int n, int a, int b, long long* cycles, int* out) {
@@ -517,6 +527,34 @@ def queue_case(rng, Q, C, T, n_sid):
     return prio, seq, valid, tenant, w_slot, sid, ts, vals
 
 
+def program_table(rng, shape, L, R, kind="random"):
+    """A (*shape, L, 4) bytecode table for the apply kernel's edges:
+    "random" fusable opcodes with operands from -3 past R and NOPs on about
+    half of each row's second half; "tail" the same with a non-NOP last
+    instruction in every row (each warp runs all L steps); "nop" every
+    row all NOPs (no step runs); "diverse" row r runs opcode
+    (r + 5 pc) mod 33 - 2 at pc, so the 32 rows of a warp run 32 different
+    opcodes at every pc (those outside the fusable set, negative ones and
+    those past the last run as NOP)."""
+    import numpy as np
+    from repro_torch.kernels.round_fuse import ref as rf_ref
+    pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
+    n = int(np.prod(shape))
+    if kind == "diverse":
+        ops = (np.arange(n)[:, None] + 5 * np.arange(L)[None, :]) % 33 - 2
+    else:
+        ops = rng.choice(pool, (n, L))
+        ops[:, L // 2:] = np.where(rng.random((n, L - L // 2)) < 0.5, 0,
+                                   ops[:, L // 2:])
+    if kind == "tail":
+        ops[:, L - 1] = rng.choice(pool[pool != 0], n)
+    if kind == "nop":
+        ops[:] = 0
+    operands = rng.integers(-3, R + 6, (n, L, 3))
+    return np.concatenate([ops[..., None], operands], axis=-1).astype(
+        np.int32).reshape(*shape, L, 4)
+
+
 def phase_kernels(torch, dev, cfg_defaults):
     import numpy as np
     from repro_torch.kernels.round_fuse import ref as rf_ref
@@ -562,19 +600,13 @@ def phase_kernels(torch, dev, cfg_defaults):
     layout = rf_ref.RegLayout.from_cfg(cfg)
     R = layout.n_regs
     err = 0.0
-    for case in range(2):
+    kinds = ("random", "random", "tail", "diverse", "nop")
+    for case, kind in enumerate(kinds):
         prio, seq, valid, tenant, w_slot, sid, ts, vals = queue_case(
             rng, Q, C, T, N)
         out_table = rng.integers(-1, N, (N, F)).astype(np.int32)
         in_table = rng.integers(-2, N, (N, M)).astype(np.int32)
-        ops_pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
-        progs = np.stack([rng.choice(ops_pool, (N, L)),
-                          rng.integers(-3, R + 6, (N, L)),    # over-range
-                          rng.integers(-3, R + 6, (N, L)),
-                          rng.integers(-3, R + 6, (N, L))],
-                         axis=-1).astype(np.int32)
-        progs[:, L // 2:, 0] = np.where(rng.random((N, L - L // 2)) < 0.5,
-                                        0, progs[:, L // 2:, 0])
+        progs = program_table(rng, (N,), L, R, kind)
         consts = rng.standard_normal((N, K)).astype(np.float32)
         is_comp = rng.random(N) < 0.75
         active = rng.random(N) < 0.9                           # revoked rows
@@ -591,10 +623,13 @@ def phase_kernels(torch, dev, cfg_defaults):
         got = fused_round_call(*a, B, *tbl, layout)
         want = fused_stages(*a, B, *tbl, layout, use_kernel=False)
         torch.cuda.synchronize()
-        err = max(err, compare(f"fused_round case {case}", got, want))
+        err = max(err, compare(f"fused_round case {case} ({kind} "
+                               f"programs)", got, want))
     errs["fused_round"] = err
     print(f"[kernels] fused_round Q={Q} N={N} B={B} F={F} M={M} L={L} "
-          f"R={R}: bitwise equal to the plain version (2 cases)", flush=True)
+          f"R={R}: bitwise equal to the plain version ({len(kinds)} cases, "
+          f"programs {', '.join(kinds)}; the apply's per-event planes at "
+          f"rep = F = {F})", flush=True)
 
     # -- window_agg: N = 4099 is a multiple of no CTA's stream count (128
     # streams at C = 1, 32 at C = 4); windows with NaN, -0.0, subnormals,
@@ -630,8 +665,9 @@ def phase_kernels(torch, dev, cfg_defaults):
 def exchange_case(rng, D, W, C, E, mode):
     """Work items of D senders for ``exchange_compact``: ``mode``
     "mixed" (random destinations, a quarter unrouted, some dest past D),
-    "one" (every routed item to shard 0, so buckets overflow) or
-    "none" (every lane unrouted); NaN, -0.0, inf and subnormal payloads."""
+    "one" (every routed item to shard 0, so buckets overflow), "all"
+    (every item routed to the last shard) or "none" (every lane
+    unrouted); NaN, -0.0, inf and subnormal payloads."""
     import numpy as np
     wi_t = rng.integers(-1, 50000, (D, W)).astype(np.int32)
     wi_src = rng.integers(-5, 50000, (D, W)).astype(np.int32)
@@ -648,45 +684,55 @@ def exchange_case(rng, D, W, C, E, mode):
         dest[rng.random((D, W)) < 0.25] = D
     elif mode == "one":
         dest = np.where(rng.random((D, W)) < 0.9, 0, D).astype(np.int32)
+    elif mode == "all":
+        dest = np.full((D, W), D - 1, np.int32)
     else:
         dest = np.full((D, W), D, np.int32)
     return wi_t, wi_src, wi_ts, wi_its, vals, dest
 
 
-def apply_case(rng, cfg, S, n_tab, n_snap, W):
+def apply_case(rng, cfg, S, n_tab, n_snap, W, kind="random"):
     """Inputs of the sharded post-exchange apply: S shards of ``n_tab``
     table rows and W items each, against one ``n_snap``-row snapshot.
     Rows and targets in range (the round clips them); co-input sids from
-    -2 past n_snap; random fusable bytecode with over-range operands;
+    -2 past n_snap; bytecode of ``program_table``'s ``kind`` ("diverse":
+    item w on row w mod n_tab, so a warp's lanes run different rows);
     NaN, -0.0 and subnormal snapshot values; revoked and non-composite
     rows; a random item mask."""
     import numpy as np
     from repro_torch.kernels.round_fuse import ref as rf_ref
     M, L, K, C = cfg.max_in, cfg.prog_len, cfg.n_consts, cfg.channels
     R = rf_ref.RegLayout.from_cfg(cfg).n_regs
-    ops_pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
-    progs = np.stack([rng.choice(ops_pool, (S, n_tab, L)),
-                      rng.integers(0, R + 6, (S, n_tab, L)),
-                      rng.integers(0, R + 6, (S, n_tab, L)),
-                      rng.integers(0, R + 6, (S, n_tab, L))],
-                     axis=-1).astype(np.int32)
-    progs[..., L // 2:, 0] = np.where(
-        rng.random((S, n_tab, L - L // 2)) < 0.5, 0, progs[..., L // 2:, 0])
+    progs = program_table(rng, (S, n_tab), L, R, kind)
     values = rng.standard_normal((n_snap, C)).astype(np.float32)
     values.ravel()[rng.integers(0, n_snap * C, 16)] = np.nan
     values.ravel()[rng.integers(0, n_snap * C, 16)] = -0.0
     values.ravel()[rng.integers(0, n_snap * C, 8)] = 1e-40
     vals = rng.standard_normal((S, W, C)).astype(np.float32)
     vals.ravel()[rng.integers(0, vals.size, 8)] = np.nan
+    rows = rng.integers(0, n_tab, (S, W)).astype(np.int32)
+    if kind == "diverse":
+        rows[:] = np.arange(W) % n_tab
     return (rng.integers(-2, n_snap + 4, (S, n_tab, M)).astype(np.int32),
             progs, rng.standard_normal((S, n_tab, K)).astype(np.float32),
             rng.random((S, n_tab)) < 0.75, rng.random((S, n_tab)) < 0.9,
-            rng.integers(0, n_tab, (S, W)).astype(np.int32),
-            rng.integers(0, n_snap, (S, W)).astype(np.int32),
+            rows, rng.integers(0, n_snap, (S, W)).astype(np.int32),
             rng.integers(-3, n_snap + 3, (S, W)).astype(np.int32), vals,
             rng.integers(-5, 40, (S, W)).astype(np.int32),
             rng.random((S, W)) < 0.8, values,
             rng.integers(-5, 40, n_snap).astype(np.int32))
+
+
+def limit_prog_len(cfg) -> int:
+    """The longest program ``apply_programs`` takes at ``cfg``'s other
+    widths: the CTA's staged planes then fill the shared-memory limit."""
+    from repro_torch.kernels.round_fuse import kernel as rk
+    from repro_torch.kernels.round_fuse import ref as rf_ref
+    layout = rf_ref.RegLayout.from_cfg(cfg)
+    L = 1
+    while rk.apply_smem_bytes(layout, L + 1, cfg.n_consts) <= rk.SMEM_LIMIT:
+        L += 1
+    return L
 
 
 def phase_shard_kernels(torch, dev, cfg, D):
@@ -695,7 +741,10 @@ def phase_shard_kernels(torch, dev, cfg, D):
     max_out items per sender, E = W slots; D x E applied items per shard,
     n_local = N / D table rows against an N-row snapshot) and adversarial
     cases.  Returns the max abs error of each (0.0)."""
+    import ctypes
+    import dataclasses
     import numpy as np
+    from repro_torch.kernels.round_fuse import kernel as rk
     from repro_torch.kernels.round_fuse import ref as rf_ref
     from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
                                                        exchange_compact_call)
@@ -705,36 +754,66 @@ def phase_shard_kernels(torch, dev, cfg, D):
     layout = rf_ref.RegLayout.from_cfg(cfg)
     W, N = cfg.work, cfg.n_streams
     err_x, shapes = 0.0, []
-    for (Dx, Wx, E, mode) in [(D, W, W, "mixed"), (D, W, 64, "mixed"),
-                              (D, W, 64, "one"), (D, W, W, "none"),
-                              (1, 1000, 7, "mixed"), (2, 77, 5, "one"),
-                              (3, 1000, 300, "mixed"), (8, 1024, 100, "mixed"),
-                              (8, 129, 1, "one")]:
+    C = cfg.channels
+    for (Dx, Wx, E, mode, Cx) in [
+            (D, W, W, "mixed", C), (D, W, 64, "mixed", C),
+            (D, W, 64, "one", C), (D, W, W, "none", C),
+            (1, 1000, 7, "mixed", C), (2, 77, 5, "one", C),
+            (3, 1000, 300, "mixed", C), (8, 1024, 100, "mixed", C),
+            (8, 129, 1, "one", C), (32, W, 40, "mixed", C),
+            (D, W, 1000, "all", C), (D, 1, 5, "mixed", C),
+            (2, 5000, 1000, "mixed", C), (3, 5000, 2000, "one", C),
+            (D, W, 300, "mixed", 1), (D, W, W, "one", 3)]:
         case = [torch.from_numpy(a).to(dev)
-                for a in exchange_case(rng, Dx, Wx, cfg.channels, E, mode)]
+                for a in exchange_case(rng, Dx, Wx, Cx, E, mode)]
         got = exchange_compact_call(*case, Dx, E)
         want = exchange_compact(*case, Dx, E, use_kernel=False)
         torch.cuda.synchronize()
         err_x = max(err_x, compare(f"exchange_compact D={Dx} W={Wx} E={E} "
-                                   f"{mode}", got, want))
-        shapes.append(f"({Dx}, {Wx}, E={E}, {mode})")
+                                   f"{mode} C={Cx}", got, want))
+        shapes.append(f"({Dx}, {Wx}, E={E}, {mode}, C={Cx})")
     print(f"[kernels] exchange_compact at {', '.join(shapes)}: buckets, "
           f"payload bits and overflow mask bitwise equal to the plain "
           f"version", flush=True)
     err_a, shapes = 0.0, []
-    for (S, n_tab, n_snap, Wa) in [(D, N // D, N, D * W), (3, 100, 333, 257),
-                                   (1, 64, 64, 130)]:
+    c1, c3 = (dataclasses.replace(cfg, channels=c).validate() for c in (1, 3))
+    at_limit = dataclasses.replace(cfg, prog_len=limit_prog_len(cfg))
+    # the wrapper's fit check and the launcher reckon the same CTA
+    lib = rk._lib()
+    for L in (cfg.prog_len, at_limit.prog_len):
+        c_bytes = lib.apply_programs_smem((ctypes.c_int * 10)(*layout), L,
+                                          cfg.n_consts)
+        if c_bytes != rk.apply_smem_bytes(layout, L, cfg.n_consts) or \
+                lib.apply_programs_items() != rk.APPLY_ITEMS:
+            fail(f"apply_programs: the launcher gives {c_bytes} shared "
+                 f"bytes to a CTA of {lib.apply_programs_items()} items at "
+                 f"L={L}, the wrapper's check reckons "
+                 f"{rk.apply_smem_bytes(layout, L, cfg.n_consts)} for "
+                 f"{rk.APPLY_ITEMS}")
+    for (cf, S, n_tab, n_snap, Wa, kind) in [
+            (cfg, D, N // D, N, D * W, "random"),
+            (cfg, 3, 100, 333, 257, "random"), (cfg, 1, 64, 64, 130, "random"),
+            (cfg, D, N // D, N, D * W, "tail"), (cfg, 2, 50, 90, 300, "nop"),
+            (cfg, D, N // D, N, D * W, "diverse"),
+            (cfg, 2, 40, 100, 1001, "diverse"), (c1, 3, 70, 200, 333, "tail"),
+            (c3, 2, 90, 150, 517, "random"), (at_limit, 1, 48, 64, 99, "tail")]:
+        lay = rf_ref.RegLayout.from_cfg(cf)
         c = [torch.from_numpy(a).to(dev)
-             for a in apply_case(rng, cfg, S, n_tab, n_snap, Wa)]
-        got = apply_programs_call(layout, *c)
-        want = apply_programs(layout, *c, use_kernel=False)
+             for a in apply_case(rng, cf, S, n_tab, n_snap, Wa, kind)]
+        got = apply_programs_call(lay, *c)
+        want = apply_programs(lay, *c, use_kernel=False)
         torch.cuda.synchronize()
-        err_a = max(err_a, compare(f"apply_programs S={S} n_tab={n_tab} "
-                                   f"n_snap={n_snap} W={Wa}", got, want))
-        shapes.append(f"{S} shards x {Wa} items, {n_tab} table rows, "
-                      f"{n_snap} snapshot rows")
-    print(f"[kernels] apply_programs at {'; '.join(shapes)}: all seven "
-          f"outputs bitwise equal to the plain version", flush=True)
+        err_a = max(err_a, compare(
+            f"apply_programs S={S} n_tab={n_tab} n_snap={n_snap} W={Wa} "
+            f"C={cf.channels} L={cf.prog_len} {kind}", got, want))
+        shapes.append(f"{S} x {Wa} items, {n_tab} rows, {n_snap} snapshot "
+                      f"rows, C={cf.channels}, L={cf.prog_len}, {kind}")
+    print(f"[kernels] apply_programs at {'; '.join(shapes)} (L="
+          f"{at_limit.prog_len}: "
+          f"{rk.apply_smem_bytes(layout, at_limit.prog_len, cfg.n_consts)} "
+          f"shared bytes a CTA of {rk.APPLY_ITEMS} items, the limit "
+          f"{rk.SMEM_LIMIT}): all seven outputs bitwise equal to the plain "
+          f"version", flush=True)
     return {"exchange_compact": err_x, "apply_programs": err_a}
 
 
@@ -1579,6 +1658,26 @@ def fused_round_bytes(torch, cfg, tb, out) -> int:
     return n
 
 
+def vm_chain(progs, rows) -> int:
+    """The apply's dependent chain on these items: the most non-NOP
+    instructions in any item's program (``rows`` index ``progs``'s rows;
+    an invalid item runs row 0's, as the kernel and its plain version
+    do).  Each reads registers that earlier ones may have written, so the
+    VM takes at least this many dependent instructions."""
+    return int((progs[rows.long()][..., 0] != 0).sum(dim=-1).max())
+
+
+def chain_terms(by, n_bytes, n_ops, chain_ms):
+    """The three terms of ``bound_ms`` as printed beside a bound (``by``
+    its verdict): bytes, operations at the scalar peak, and the dependent
+    chain."""
+    binds = "the chain" if by == "operations" and chain_ms >= \
+        n_ops / SCALAR_OPS_PER_S * 1e3 else by
+    return (f"terms: bytes {n_bytes / HBM_BYTES_PER_S * 1e3} ms, operations "
+            f"{n_ops / SCALAR_OPS_PER_S * 1e3} ms, chain {chain_ms} ms; "
+            f"{binds} binds")
+
+
 def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
     import math
     from repro_torch.core import engine as E
@@ -1642,7 +1741,11 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
           flush=True)
 
     fr_bytes = fused_round_bytes(torch, cfg, tb, out)
-    fr_bound, fr_by = bound_ms(fr_bytes, B * Q, chain)
+    # the apply waits for the pop: their chains add
+    fr_vm = vm_chain(tb.progs, torch.clamp(out[2], 0, cfg.n_streams - 1))
+    fr_chain = chain + fr_vm * dep_cycles / clock_hz * 1e3
+    fr_bound, fr_by = bound_ms(fr_bytes, B * Q, fr_chain)
+    fr_terms = chain_terms(fr_by, fr_bytes, B * Q, fr_chain)
     (pop_l, apply_l), _ = plan_fused_round(*q, B, *tbl, layout)
     fr_ms, fr_host = time_launches([pop_l, apply_l], 200)
     pop_ms, pop_host = time_launches([pop_l], 200)
@@ -1663,7 +1766,10 @@ def phase_timings(torch, eng, errs, launches, dep_cycles, clock_hz):
           f"(host {pop_host} ms); profiler pop_dispatch "
           f"{fr_prof['pop_dispatch_kernel']} ms + apply_programs "
           f"{fr_prof['apply_programs_kernel']} ms; plain {fr_plain} ms; "
-          f"bound {fr_bound} ms ({fr_by}; {fr_bytes} bytes); "
+          f"bound {fr_bound} ms ({fr_by}; {fr_bytes} bytes; chain: the "
+          f"pop's {levels} + the VM's {fr_vm} dependent instructions, the "
+          f"longest non-NOP program among the items, x {dep_cycles} cycles; "
+          f"{fr_terms}); programs of {tb.progs.shape[-2]} steps; "
           f"{n_valid}/{B * F} valid work items", flush=True)
     return rows_out
 
@@ -1736,7 +1842,8 @@ def apply_cost(torch, args):
     return n, ops
 
 
-def time_shard_kernels(torch, eng, sources, errs, launches):
+def time_shard_kernels(torch, eng, sources, errs, launches, dep_cycles,
+                       clock_hz):
     """``exchange_compact`` and ``apply_programs`` at the sharded main
     path's shapes and data (recorded from one round of the kernel
     engine), timed alone beside their plain versions and bounds."""
@@ -1755,8 +1862,7 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
     x_bytes = S * W * (5 * 4 + 4 * C + 1) + S * D * E * (4 + C) * 4
     x_bound, x_by = bound_ms(x_bytes, 0, 0.0)
     launch, _ = plan_exchange_compact(*xa)
-    ms, host = time_launches([launch], 200)
-    prof = profile_kernels([launch], ["exchange_compact_kernel"])
+    ms, ev, host, prof, src = launch_ms(launch, "exchange_compact_kernel")
     plain = time_ms(lambda: exchange_compact(*xa, use_kernel=False), reps=5)
     routed = int((xa[5] < D).sum())
     rows.append(dict(
@@ -1767,9 +1873,9 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
         max_abs_err=errs["exchange_compact"], ms=ms, plain_ms=plain,
         bound_ms=x_bound, bound_by=x_by, library_ms=None))
     print(f"[timing] exchange_compact at ({S} senders, W={W}, {D} x {E} "
-          f"slots, C={C}), {routed} routed items: kernel {ms} ms (CUDA "
-          f"events over 200 back-to-back launches; host enqueue {host} ms "
-          f"per launch), profiler {prof['exchange_compact_kernel']} ms; "
+          f"slots, C={C}), {routed} routed items: kernel {ms} ms ({src}; "
+          f"CUDA events over 200 back-to-back launches {ev} ms, host "
+          f"enqueue {host} ms per launch, profiler {prof} ms); "
           f"plain {plain} ms; bound {x_bound} ms ({x_by}; {x_bytes} bytes: "
           f"W x (5 int32 + C f32 + drop byte) in and out, D x E x (4 + C) "
           f"x 4 B of buckets out, per sender); no single PyTorch call ranks "
@@ -1777,10 +1883,12 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
           flush=True)
     aa = rec["apply_programs"]
     a_bytes, a_ops = apply_cost(torch, aa)
-    a_bound, a_by = bound_ms(a_bytes, a_ops, 0.0)
+    a_vm = max(vm_chain(aa[2][s], aa[6][s]) for s in range(aa[6].shape[0]))
+    a_chain = a_vm * dep_cycles / clock_hz * 1e3
+    a_bound, a_by = bound_ms(a_bytes, a_ops, a_chain)
+    a_terms = chain_terms(a_by, a_bytes, a_ops, a_chain)
     launch, _ = plan_apply_programs(*aa)
-    ms, host = time_launches([launch], 200)
-    prof = profile_kernels([launch], ["apply_programs_kernel"])
+    ms, ev, host, prof, src = launch_ms(launch, "apply_programs_kernel")
     plain = time_ms(lambda: apply_programs(*aa, use_kernel=False), reps=3)
     S, W = aa[6].shape
     rows.append(dict(
@@ -1792,12 +1900,15 @@ def time_shard_kernels(torch, eng, sources, errs, launches):
         bound_ms=a_bound, bound_by=a_by, library_ms=None))
     print(f"[timing] apply_programs at ({S} shards x {W} items, "
           f"{aa[1].shape[1]} table rows, {aa[12].shape[0]} snapshot rows), "
-          f"{int(aa[11].sum())} valid items: kernel {ms} ms (CUDA events "
-          f"over 200 back-to-back launches; host enqueue {host} ms per "
-          f"launch), profiler {prof['apply_programs_kernel']} ms; plain "
+          f"{int(aa[11].sum())} valid items: kernel {ms} ms ({src}; CUDA "
+          f"events over 200 back-to-back launches {ev} ms, host enqueue "
+          f"{host} ms per launch, profiler {prof} ms); plain "
           f"{plain} ms; bound {a_bound} ms ({a_by}; {a_bytes} bytes, {a_ops} "
-          f"VM instructions); no single PyTorch call runs the bytecode VM, "
-          f"so no library time", flush=True)
+          f"VM instructions, a chain of {a_vm} dependent instructions (the "
+          f"longest non-NOP program among the items) x {dep_cycles} "
+          f"cycles at {clock_hz / 1e6} MHz; {a_terms}); programs of "
+          f"{aa[2].shape[-2]} steps; no single PyTorch call runs the "
+          f"bytecode VM, so no library time", flush=True)
     return rows
 
 
@@ -2315,9 +2426,13 @@ def attention_cost(B, H, KV, L, Dh, window, itemsize):
 def device_ms(torch, launch, name, n):
     """(CUDA-event ms per launch over ``n`` back-to-back launches, host
     enqueue ms, profiler device ms); fails if the profiler does not see
-    the kernel by its name."""
+    the kernel by its name in windows of 5, 20 and 50 launches (a short
+    window's trace can come back without the launches' kernel events)."""
     ev, host = time_launches([launch], n, warmup=3)
-    prof = profile_kernels([launch], [name], n=5)[name]
+    for window in (5, 20, 50):
+        prof = profile_kernels([launch], [name], n=window)[name]
+        if prof is not None:
+            break
     if prof is None:
         fail(f"torch.profiler saw no CUDA kernel named {name}")
     return ev, host, prof
@@ -3100,7 +3215,8 @@ def main() -> None:
                          dep_cycles, clock_hz)
     rows.append(time_window_agg(torch, suite, errs,
                                 suite_launches["window_agg_call"]))
-    rows += time_shard_kernels(torch, e_sh, sources, errs, sh_launches)
+    rows += time_shard_kernels(torch, e_sh, sources, errs, sh_launches,
+                               dep_cycles, clock_hz)
     rows += time_dispatch_kernels(
         torch, d_engines["single staged"], d_engines[f"{SHARDS}-shard fused"],
         sources, errs, {k: sum(run[k] for run in d_launches.values())

@@ -6,12 +6,15 @@ The Pallas megakernel held the whole (W, R) register file in VMEM, which
 one SM's shared memory cannot hold at the default widths, so the fused
 round is two launches on PyTorch's current stream: ``pop_dispatch`` (one
 CTA: the sorted-selection pop of ``sched_pop/csrc/pop_select.cuh``, then
-the fan-out) and ``apply_programs`` (a grid over the W work items:
-co-input fetch, VM, window gate), both in ``csrc/fused_round.cu``.  ``apply_programs_call`` launches the second
+the fan-out) and ``apply_programs`` (CTAs of :data:`APPLY_ITEMS` work
+items, each item's program, constants, co-input ids and register file
+staged in shared memory before its VM runs), both in
+``csrc/fused_round.cu``.  ``apply_programs_call`` launches the second
 alone for the sharded round's post-exchange apply (every shard in one
 launch), and ``exchange_compact_call`` the compaction of
-``csrc/exchange_compact.cu``.  See the notes at the top of the sources
-for what bounds them.
+``csrc/exchange_compact.cu`` (a grid over sender, destination and slot
+tile; every bucket slot written once).  See the notes at the top of the
+sources for what bounds them.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.kernels.round_fuse.ref import RegLayout
 from repro_torch.kernels.sched_pop.kernel import check_fits
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-APPLY_THREADS = 128     # work items per CTA of apply_programs
+APPLY_ITEMS = 32        # work items per CTA of apply_programs: one warp
+SMEM_LIMIT = 232448     # dynamic shared bytes one CTA may opt in to (H100)
 
 
 def _lib():
@@ -35,6 +39,9 @@ def _lib():
         lib.apply_programs_launch.argtypes = \
             [ctypes.POINTER(_I)] + [_I] * 7 + [_P] * 21
         lib.apply_programs_launch.restype = _I
+        lib.apply_programs_smem.argtypes = [ctypes.POINTER(_I), _I, _I]
+        lib.apply_programs_smem.restype = ctypes.c_longlong
+        lib.apply_programs_items.restype = _I
         lib._typed = True
     return lib
 
@@ -43,7 +50,25 @@ def _on(x, dev, dtype) -> torch.Tensor:
     return x.to(device=dev, dtype=dtype).contiguous()
 
 
-def _check_layout(layout: RegLayout) -> None:
+def _quad_pitch(n: int) -> int:
+    return ((n + 3) & ~3) | 4
+
+
+def apply_smem_bytes(layout: RegLayout, prog_len: int, n_consts: int) -> int:
+    """Shared bytes of one ``apply_programs`` CTA — ``apply_smem_bytes`` of
+    ``csrc/fused_round.cu``: per work item its program (16 B a step, at an
+    odd pitch), its register file (``n_regs`` floats), and its constants
+    and in_table entries (4 B each, at a pitch of a multiple of four that
+    is no multiple of eight)."""
+    return APPLY_ITEMS * (16 * (prog_len | 1) + 4 * (
+        layout.n_regs + _quad_pitch(n_consts) + _quad_pitch(layout.max_in)))
+
+
+def check_layout(layout: RegLayout, prog_len: int, n_consts: int) -> None:
+    """Raise ``ValueError`` unless ``apply_programs`` takes this register
+    layout with programs of ``prog_len`` steps and ``n_consts``
+    constants: its segments contiguous, and one CTA's staged planes
+    (:func:`apply_smem_bytes`) within :data:`SMEM_LIMIT`."""
     # the kernel zeroes [reg_result, n_regs) and fills the segments below
     # it in order: the engine's layout is contiguous
     if (layout.reg_inputs, layout.reg_prev, layout.reg_ts,
@@ -53,9 +78,13 @@ def _check_layout(layout: RegLayout) -> None:
             layout.max_in * layout.channels + layout.channels + 1,
             layout.max_in * layout.channels + layout.channels + 2):
         raise ValueError(f"register layout {layout} is not contiguous")
-    if 4 * layout.n_regs * APPLY_THREADS > 232448:
-        raise ValueError(f"{layout.n_regs} registers per item do not fit "
-                         "one CTA's shared memory")
+    need = apply_smem_bytes(layout, prog_len, n_consts)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{layout.n_regs} registers, {prog_len} program steps, "
+            f"{n_consts} constants and {layout.max_in} co-inputs per work "
+            f"item need {need} shared bytes per CTA of {APPLY_ITEMS} items; "
+            f"one CTA holds at most {SMEM_LIMIT}")
 
 
 def _plan_apply(lib, layout: RegLayout, dev, rep: int, rows, t_sid,
@@ -112,6 +141,7 @@ def plan_fused_round(prio_slot, seq, valid, t_slot, w_slot, sid, vals, ts,
     kernel on PyTorch's current stream and does no other host work (so
     the kernels can be timed alone), ``apply_launch`` after
     ``pop_launch``.  ``outputs`` is what ``fused_round_call`` returns."""
+    check_layout(layout, progs.shape[-2], consts.shape[-1])
     dev = vals.device
     if dev.type != "cuda":
         raise ValueError("fused_round_call takes CUDA tensors")
@@ -123,7 +153,6 @@ def plan_fused_round(prio_slot, seq, valid, t_slot, w_slot, sid, vals, ts,
     if C != layout.channels or in_table.shape != (N, layout.max_in):
         raise ValueError("tables do not match the register layout")
     check_fits(Q, batch)
-    _check_layout(layout)
     lib = _lib()
 
     q_in = [_on(prio_slot, dev, i32), _on(seq, dev, i32),
@@ -189,7 +218,10 @@ def plan_apply_programs(layout: RegLayout, in_table, progs, consts,
     every shard in one launch, each reading its own table slice.  ``rows`` index the tables,
     ``t_sid`` and every co-input the shared (n_snap, ...) snapshot.
     Returns ``(launch, outputs)``: ``launch`` only enqueues the kernel,
-    ``outputs`` is what ``apply_programs_call`` returns."""
+    ``outputs`` is what ``apply_programs_call`` returns.  A layout that
+    :func:`check_layout` refuses raises ``ValueError`` first, on any
+    device."""
+    check_layout(layout, progs.shape[-2], consts.shape[-1])
     dev = wi_vals.device
     if dev.type != "cuda":
         raise ValueError("apply_programs_call takes CUDA tensors")
@@ -204,7 +236,6 @@ def plan_apply_programs(layout: RegLayout, in_table, progs, consts,
     if tuple(rows.shape) != (S, W) or tuple(progs.shape[:-2]) != \
             (S, n_tab) or values_by_sid.shape[-1] != C:
         raise ValueError("apply_programs_call: inconsistent shapes")
-    _check_layout(layout)
     return _plan_apply(
         _lib(), layout, dev, 1, _on(rows, dev, i32), _on(t_sid, dev, i32),
         _on(wi_valid, dev, b8), _on(wi_src, dev, i32), _on(wi_ts, dev, i32),
@@ -247,8 +278,8 @@ def _exchange_lib():
 def plan_exchange_compact(wi_t, wi_src, wi_ts, wi_its, wi_vals, dest_shard,
                           n_shards: int, slots: int):
     """Check and stage the exchange compaction on the card without
-    launching it.  Work items are (S, W) planes of S senders (one CTA
-    each, one launch for all);
+    launching it.  Work items are (S, W) planes of S senders (one launch
+    for all);
     ``dest_shard == n_shards`` marks unrouted lanes.  Returns ``(launch,
     (xi, xf, x_drop))`` shaped as ``exchange_compact_call`` returns
     them."""

@@ -92,13 +92,20 @@ def test_sched_pop_kernel_matches_plain(dev, Q, B, C, T, kind):
     _assert_bits(got, want)
 
 
+# the last rows run the apply's program edges (see _programs) on the fused
+# round's per-event planes (rep = F items per event)
 @pytest.mark.parametrize("Q,N,C,B,F,M,L,T,kind", [
     (32, 16, 1, 2, 2, 2, 4, 4, "mixed"),
     (200, 40, 4, 8, 3, 4, 12, 4, "mixed"),
     (300, 200, 3, 16, 9, 5, 20, 4, "mixed")] + [
-    (Q, 40, 2, B, 3, 4, 12, T, kind) for Q, B, T, kind in POP_EDGES])
+    (Q, 40, 2, B, 3, 4, 12, T, kind) for Q, B, T, kind in POP_EDGES] + [
+    (256, 300, 4, 32, 16, 6, 14, 4, prog) for prog in ("tail", "diverse",
+                                                       "nop")] + [
+    (256, 300, 1, 20, 7, 3, 9, 4, "tail")])
 def test_fused_round_kernel_matches_plain(dev, Q, N, C, B, F, M, L, T, kind):
     rng = np.random.default_rng(Q + N)
+    prog = kind if kind in ("tail", "diverse", "nop") else None
+    kind = "mixed" if prog else kind
     cfg = EngineConfig(n_streams=N, channels=C, max_in=M, max_out=F,
                        batch=B, queue=Q, prog_len=L, n_consts=6, n_temps=4)
     layout = rf_ref.RegLayout.from_cfg(cfg)
@@ -112,7 +119,8 @@ def test_fused_round_kernel_matches_plain(dev, Q, N, C, B, F, M, L, T, kind):
                         rng.integers(-2, R + 4, (N, L)),
                         rng.integers(-2, R + 4, (N, L)),
                         rng.integers(-2, R + 4, (N, L))],
-                       axis=-1).astype(np.int32),
+                       axis=-1).astype(np.int32) if prog is None else
+              _programs(rng, (N,), L, R, prog),
               rng.standard_normal((N, 6)).astype(np.float32),
               rng.random(N) < 0.7, rng.random(N) < 0.85, values,
               rng.integers(-5, 30, N).astype(np.int32)]
@@ -269,9 +277,19 @@ def test_iot_suite_on_the_card_equals_the_cpu(dev):
                                       b["aggregates"][k].view(np.int32))
 
 
-@pytest.mark.parametrize("S,W,D,E,C", [(1, 40, 1, 16, 3), (2, 300, 2, 64, 4),
-                                       (3, 257, 3, 9, 1), (8, 129, 8, 2, 4)])
-def test_exchange_compact_kernel_matches_plain(dev, S, W, D, E, C):
+# (S, W, D, E, C, mode): "third" routes the first third of each sender's
+# items to destination 0 (it overflows) and the rest at random, some
+# unrouted; "all" routes every item to the last destination; 32
+# destinations, W = 1 and W > 4,096, slots no multiple of the 256-slot
+# tile, C = 1 and 3 (the payload's 4-byte path)
+@pytest.mark.parametrize("S,W,D,E,C,mode", [
+    (1, 40, 1, 16, 3, "third"), (2, 300, 2, 64, 4, "third"),
+    (3, 257, 3, 9, 1, "third"), (8, 129, 8, 2, 4, "third"),
+    (2, 600, 32, 30, 4, "third"), (3, 500, 4, 300, 4, "all"),
+    (2, 1, 3, 5, 4, "third"), (2, 5000, 4, 1000, 4, "third"),
+    (1, 4500, 2, 4097, 3, "all"), (2, 700, 5, 513, 1, "third"),
+    (2, 700, 5, 257, 3, "all")])
+def test_exchange_compact_kernel_matches_plain(dev, S, W, D, E, C, mode):
     from repro_torch.kernels.round_fuse.kernel import exchange_compact_call
     from repro_torch.kernels.round_fuse.ops import exchange_compact
     rng = np.random.default_rng(S * W + E)
@@ -280,6 +298,8 @@ def test_exchange_compact_kernel_matches_plain(dev, S, W, D, E, C):
                                                    1e-40]
     dest = rng.integers(0, D + 2, (S, W)).astype(np.int32)
     dest[:, : W // 3] = 0                      # one destination overflows
+    if mode == "all":
+        dest[:] = D - 1
     case = [rng.integers(-1, 900, (S, W)).astype(np.int32)
             for _ in range(4)] + [vals, dest]
     args = [torch.from_numpy(a).to(dev) for a in case]
@@ -289,31 +309,62 @@ def test_exchange_compact_kernel_matches_plain(dev, S, W, D, E, C):
     _assert_bits(got, exchange_compact(*args, D, E, use_kernel=False))
 
 
-@pytest.mark.parametrize("S,n_tab,n_snap,W", [(1, 16, 16, 33),
-                                              (4, 12, 48, 130)])
-def test_apply_programs_kernel_matches_plain(dev, S, n_tab, n_snap, W):
+def _programs(rng, shape, L, R, kind):
+    """(*shape, L, 4) bytecode: "random" fusable opcodes with operands
+    from -2 past R; "tail" the same with a non-NOP last instruction in
+    every row; "nop" all NOPs; "diverse" row r runs opcode
+    (r + 5 pc) mod 33 - 2 at pc, so 32 consecutive rows run 32 different
+    opcodes at every pc (non-fusable, negative and too large ones run as
+    NOP)."""
+    pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
+    n = int(np.prod(shape))
+    if kind == "diverse":
+        ops = (np.arange(n)[:, None] + 5 * np.arange(L)[None, :]) % 33 - 2
+    else:
+        ops = rng.choice(pool, (n, L))
+    if kind == "tail":
+        ops[:, L - 1] = rng.choice(pool[pool != 0], n)
+    if kind == "nop":
+        ops[:] = 0
+    operands = rng.integers(0 if kind == "random" else -2, R + 4, (n, L, 3))
+    return np.concatenate([ops[..., None], operands], axis=-1).astype(
+        np.int32).reshape(*shape, L, 4)
+
+
+# (S, n_tab, n_snap, W, C, L, kind): the last non-NOP at L - 1, all-NOP
+# programs, warps whose 32 lanes run 32 rows with 32 different opcodes at
+# each pc, W no multiple of the CTA's items, C = 1 and 3, and (L None)
+# the longest program whose CTA fits the shared-memory limit
+@pytest.mark.parametrize("S,n_tab,n_snap,W,C,L,kind", [
+    (1, 16, 16, 33, 3, 10, "random"), (4, 12, 48, 130, 3, 10, "random"),
+    (2, 40, 64, 100, 3, 12, "tail"), (1, 20, 20, 45, 3, 12, "nop"),
+    (2, 64, 100, 200, 3, 16, "diverse"), (3, 50, 70, 77, 1, 12, "tail"),
+    (2, 30, 40, 65, 3, 9, "diverse"), (1, 8, 8, 40, 4, None, "tail")])
+def test_apply_programs_kernel_matches_plain(dev, S, n_tab, n_snap, W, C, L,
+                                             kind):
+    from repro_torch.kernels.round_fuse import kernel as rk
     from repro_torch.kernels.round_fuse.kernel import apply_programs_call
     from repro_torch.kernels.round_fuse.ops import apply_programs
     rng = np.random.default_rng(S + W)
-    cfg = EngineConfig(n_streams=n_snap, channels=3, max_in=4, prog_len=10,
-                       n_consts=6, n_temps=6)
-    layout = rf_ref.RegLayout.from_cfg(cfg)
+    layout = rf_ref.RegLayout.from_cfg(EngineConfig(
+        n_streams=n_snap, channels=C, max_in=4, n_consts=6, n_temps=6))
     R = layout.n_regs
-    pool = np.asarray(sorted(rf_ref.FUSABLE_OPS), np.int32)
-    values = rng.standard_normal((n_snap, 3)).astype(np.float32)
+    if L is None:
+        L = 1
+        while rk.apply_smem_bytes(layout, L + 1, 6) <= rk.SMEM_LIMIT:
+            L += 1
+    values = rng.standard_normal((n_snap, C)).astype(np.float32)
     values.ravel()[rng.integers(0, values.size, 3)] = [np.nan, -0.0, 1e-40]
+    rows = rng.integers(0, n_tab, (S, W)).astype(np.int32)
+    if kind == "diverse":
+        rows[:] = np.arange(W) % n_tab
     case = [rng.integers(-2, n_snap + 2, (S, n_tab, 4)).astype(np.int32),
-            np.stack([rng.choice(pool, (S, n_tab, 10)),
-                      rng.integers(0, R + 4, (S, n_tab, 10)),
-                      rng.integers(0, R + 4, (S, n_tab, 10)),
-                      rng.integers(0, R + 4, (S, n_tab, 10))],
-                     axis=-1).astype(np.int32),
+            _programs(rng, (S, n_tab), L, R, kind),
             rng.standard_normal((S, n_tab, 6)).astype(np.float32),
             rng.random((S, n_tab)) < 0.7, rng.random((S, n_tab)) < 0.9,
-            rng.integers(0, n_tab, (S, W)).astype(np.int32),
-            rng.integers(0, n_snap, (S, W)).astype(np.int32),
+            rows, rng.integers(0, n_snap, (S, W)).astype(np.int32),
             rng.integers(-2, n_snap + 2, (S, W)).astype(np.int32),
-            rng.standard_normal((S, W, 3)).astype(np.float32),
+            rng.standard_normal((S, W, C)).astype(np.float32),
             rng.integers(-5, 30, (S, W)).astype(np.int32),
             rng.random((S, W)) < 0.8, values,
             rng.integers(-5, 30, n_snap).astype(np.int32)]
@@ -322,6 +373,22 @@ def test_apply_programs_kernel_matches_plain(dev, S, n_tab, n_snap, W):
     got = apply_programs_call(layout, *args)
     assert apply_programs_call.launches == before + 1
     _assert_bits(got, apply_programs(layout, *args, use_kernel=False))
+
+
+def test_apply_smem_bytes_matches_the_launcher(dev):
+    """The wrapper's fit check reckons the shared bytes and the items per
+    CTA that the launcher gives the kernel."""
+    import ctypes
+    from repro_torch.kernels.round_fuse import kernel as rk
+    lib = rk._lib()
+    assert lib.apply_programs_items() == rk.APPLY_ITEMS
+    for cfg in (EngineConfig(), EngineConfig(channels=1, max_in=3,
+                                             n_temps=5, n_consts=7)):
+        layout = rf_ref.RegLayout.from_cfg(cfg)
+        for L in (1, cfg.prog_len, 300):
+            assert lib.apply_programs_smem(
+                (ctypes.c_int * 10)(*layout), L, cfg.n_consts) == \
+                rk.apply_smem_bytes(layout, L, cfg.n_consts)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])

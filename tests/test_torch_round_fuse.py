@@ -157,3 +157,91 @@ def test_fusable_rows_match_jax():
     np.testing.assert_array_equal(jref.fusable_rows(progs),
                                   pref.fusable_rows(progs))
     assert pref.fusable_rows(progs)[:20].all()
+
+
+# (config overrides, program steps, fits): the engine's defaults and the
+# widths of the CUDA tests fit; each of the register file, the program,
+# the constant pool and the in-degree can push one CTA past the limit
+FIT_LAYOUTS = [
+    (dict(), 48, True),
+    (dict(channels=3, max_in=4, n_consts=6, n_temps=6), 10, True),
+    (dict(channels=1, max_in=2, n_consts=1, n_temps=0), 1, True),
+    (dict(), 400, True),
+    (dict(), 440, False),
+    (dict(n_temps=1700), 48, False),
+    (dict(n_consts=1700), 48, False),
+    (dict(max_in=400), 16, False),
+]
+
+
+def _fit_layout(over):
+    return pref.RegLayout.from_cfg(PConfig(**over))
+
+
+@pytest.mark.parametrize("over,L,fits", FIT_LAYOUTS)
+def test_apply_layout_fit_check(over, L, fits):
+    """``check_layout`` raises ``ValueError`` exactly when one CTA's staged
+    planes — per item 16 B for each program step (an odd count) and 4 B for
+    each register, constant and in_table entry (the last two padded to a
+    multiple of four that is no multiple of eight) — exceed the shared
+    memory a CTA can hold."""
+    from repro_torch.kernels.round_fuse import kernel as rk
+    layout = _fit_layout(over)
+    K, M = PConfig(**over).n_consts, layout.max_in
+    need = rk.apply_smem_bytes(layout, L, K)
+    def pad(n):
+        return next(p for p in range(n, n + 8) if p % 8 == 4)
+
+    assert need == rk.APPLY_ITEMS * (16 * (L | 1) + 4 * (
+        layout.n_regs + pad(K) + pad(M)))
+    assert (need <= rk.SMEM_LIMIT) == fits
+    if fits:
+        rk.check_layout(layout, L, K)
+    else:
+        with pytest.raises(ValueError, match="shared bytes"):
+            rk.check_layout(layout, L, K)
+
+
+def test_apply_layout_fit_check_at_the_limit():
+    """The longest program that fits at the default widths fills the
+    limit to within one pitch step (two program steps); one step more
+    raises."""
+    from repro_torch.kernels.round_fuse import kernel as rk
+    layout, K = _fit_layout({}), PConfig().n_consts
+    L = 1
+    while rk.apply_smem_bytes(layout, L + 1, K) <= rk.SMEM_LIMIT:
+        L += 1
+    assert L > PConfig().prog_len
+    rk.check_layout(layout, L, K)
+    assert rk.SMEM_LIMIT - rk.apply_smem_bytes(layout, L, K) \
+        < 32 * rk.APPLY_ITEMS
+    with pytest.raises(ValueError, match="shared bytes"):
+        rk.check_layout(layout, L + 1, K)
+
+
+@pytest.mark.parametrize("entry", ["apply_programs_call",
+                                   "fused_round_call"])
+def test_kernel_wrappers_refuse_a_layout_that_does_not_fit(entry):
+    """Given CPU tensors and a layout whose CTA does not fit, the kernel
+    wrappers raise the layout's ``ValueError`` (not the device's) before
+    anything is launched; no path takes the plain version instead."""
+    from repro_torch.kernels.round_fuse import kernel as rk
+    L = 600
+    _, pl, c = _case(32, 16, 3, 2, 2, 4, L, K=6, seed=3)
+    assert rk.apply_smem_bytes(pl, L, 6) > rk.SMEM_LIMIT
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    launches = getattr(rk, entry).launches
+    with pytest.raises(ValueError, match="shared bytes"):
+        if entry == "fused_round_call":
+            rk.fused_round_call(*[t[k] for k in ORDER], 2,
+                                *[t[k] for k in TABLES], pl)
+        else:
+            W = 8
+            rows = torch.zeros((1, W), dtype=torch.int32)
+            rk.apply_programs_call(
+                pl, t["in_table"][None], t["progs"][None],
+                t["consts"][None], t["is_comp"][None], t["active"][None],
+                rows, rows, rows, torch.zeros((1, W, 3)), rows,
+                torch.ones((1, W), dtype=torch.bool), t["values"],
+                t["timestamps"])
+    assert getattr(rk, entry).launches == launches
