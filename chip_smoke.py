@@ -23,8 +23,12 @@ Phases, each printed on its own line:
    default engine widths (random programs, programs whose last
    instruction is not a NOP, all-NOP programs, and 32 different opcodes
    across every warp at each pc, on the apply's per-event planes of
-   rep = F items), ``window_agg`` at W in {1, 8, 33, 256, 1024}
-   and C in {1, 4} with N a multiple of no CTA's stream count,
+   rep = F items), ``window_agg`` at W in {1, 5, 8, 33, 256, 1024}
+   and C in {1, 3, 4, 5} (and C = 40, a stream over two warps) with N a
+   multiple of no warp's stream count, on both staging paths (bulk
+   copies where W C is a multiple of 4, 4-byte per-lane copies where it
+   is not and on a view one float into its buffer), counts of 0, W and
+   in between,
    ``exchange_compact`` at the 4-shard smoke shape (4 senders of 1,024
    items, 4 x 1,024 slots) and at D in {1, 2, 3, 8, 32} with overflow,
    every item to one shard, unrouted lanes, W of 1 and of 5,000, slots
@@ -39,7 +43,9 @@ Phases, each printed on its own line:
    (4096, 16) out-table with 64 ids, the (4096, 4) value snapshot with
    4,096 ids and the (1024, 16) shard table (int32 tables over the whole
    range; float tables with -0.0, subnormals, NaN payloads and
-   infinities, whose bits must pass), and ``stream_dispatch`` with and
+   infinities, whose bits must pass), its by-sid snapshot
+   (``by_sid_snapshot``) of 1, 2, 4 and 3 shards with ids out of range
+   and the same float bits, and ``stream_dispatch`` with and
    without the early mask at the smoke shape ((4096, 16) out-table,
    B = 64), the shard shape ((1024, 16) against 4,096 timestamps) and
    odd shapes (valid events with out-of-range sids, entries below -1 and
@@ -77,14 +83,14 @@ Phases, each printed on its own line:
    counters; then 24 heavy rounds of 64 posted SUs, the last 16 timed
    (the engine ingests one batch per round across all shards; the
    warm-up builds the emission backlog that fills the shards' pops).
-   ``sched_pop``, ``exchange_compact``, ``onehot_gather`` (the by-sid
-   value snapshot) and ``apply_programs`` must have launched 4, 1, 1 and
-   1 times per round.
+   ``sched_pop``, ``exchange_compact``, ``by_sid_snapshot`` (the by-sid
+   snapshot of values and timestamps) and ``apply_programs`` must have
+   launched 4, 1, 1 and 1 times per round.
 9. Phase 4 on the 4-shard fused engine: three supersteps of K = 8 under
    the sync debug mode against 24 eager sharded rounds.
 10. Phase 8 on the staged path (phase 5's registry), kernels against
     plain, 16 heavy rounds, the last 8 timed; ``exchange_compact`` and
-    ``onehot_gather`` must have launched once per round,
+    ``by_sid_snapshot`` must have launched once per round,
     ``apply_programs`` never.
 11. The IoT suite at 128 tenants, where every round drains, at 4 shards
     against 1 shard, both through the kernels: latency histograms, SLO
@@ -114,7 +120,12 @@ Phases, each printed on its own line:
     measured here by a one-thread probe; the terms and which binds are
     printed); for the
     dispatch kernels ``torch.index_select`` of the same rows is timed as
-    the nearest library call.
+    the nearest library call, and an empty kernel is timed in one
+    profiler window with ``exchange_compact``, the by-sid snapshot and
+    ``stream_dispatch`` as their launch floor; ``window_agg`` on both
+    staging paths (the aligned store and a view one float into its
+    buffer) at the suite's store and at (4096, 1024, 4), beside the
+    prediction written before its first timed run.
 
 14. The model plane's two kernels against their plain versions:
     ``flash_attention`` on the sweep of ``tests/test_kernels.py`` and odd
@@ -225,6 +236,11 @@ __global__ void dep_chain(int n, int a, int b, long long* cycles, int* out) {
 extern "C" int dep_chain_run(int n, int a, int b, void* cycles, void* out) {
   dep_chain<<<1, 1>>>(n, a, b, (long long*)cycles, (int*)out);
   return (int)cudaDeviceSynchronize();
+}
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 """
 PROBE_STEPS = 4096          # outer iterations; 64 dependent instructions each
@@ -349,8 +365,9 @@ def bound_ms(n_bytes: float, n_ops: float, chain_ms: float):
 
 
 def start_probe_build():
-    """Start ``nvcc`` on the dependent-chain probe (beside the kernels'
-    build, in the same ignored build directory); returns (process, lib)."""
+    """Start ``nvcc`` on the dependent-chain probe and the launch-floor
+    kernel (beside the kernels' build, in the same ignored build
+    directory); returns (process, lib)."""
     from repro_torch.kernels import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / "dep_chain_probe.cu"
@@ -631,35 +648,83 @@ def phase_kernels(torch, dev, cfg_defaults):
           f"programs {', '.join(kinds)}; the apply's per-event planes at "
           f"rep = F = {F})", flush=True)
 
-    # -- window_agg: N = 4099 is a multiple of no CTA's stream count (128
-    # streams at C = 1, 32 at C = 4); windows with NaN, -0.0, subnormals,
-    # and empty and full windows among the counts
-    from repro_torch.kernels.window_agg.kernel import window_agg_call
-    from repro_torch.kernels.window_agg.ops import window_agg
-    err, shapes = 0.0, []
-    for W in (1, 8, 33, 256, 1024):
-        for C in (1, 4):
-            N = 4099
-            v = (rng.standard_normal((N, W, C)) * 10).astype(np.float32)
-            flat = v.reshape(-1)
-            for x in (np.nan, -0.0, 1e-40, -3e-39):
-                flat[rng.integers(0, v.size, 64)] = x
-            count = rng.integers(0, W + 1, N).astype(np.int32)
-            count[:3] = (0, W, W)
-            count[rng.integers(0, N, 64)] = W
-            values = torch.from_numpy(v).to(dev)
-            cnt = torch.from_numpy(count).to(dev)
-            got = window_agg_call(values, cnt)
-            want = window_agg(values, cnt, use_kernel=False)
-            torch.cuda.synchronize()
-            for k in want:
-                err = max(err, compare(f"window_agg W={W} C={C} {k}",
-                                       got[k], want[k]))
-            shapes.append(f"({N}, {W}, {C})")
+    # -- window_agg: N = 4099 is a multiple of no warp's stream count (32
+    # streams at C = 1, 10 at C = 3, 8 at C = 4, 6 at C = 5); C = 40 spans
+    # two warps a stream; windows with NaN, -0.0 and subnormals, and empty,
+    # full and partial windows; W C % 4 == 0 runs the bulk copies on the
+    # aligned store, every shape the 4-byte copies (on a view one float
+    # into its buffer where the store itself takes the bulk copies)
+    err, cases = window_agg_sweep(torch, dev, rng, WINDOW_SWEEP)
     errs["window_agg"] = err
-    print(f"[kernels] window_agg at {', '.join(shapes)}: all five outputs "
-          f"bitwise equal to the plain version", flush=True)
+    print(f"[kernels] window_agg at {len(cases)} cases ({', '.join(cases)}): "
+          f"all five outputs bitwise equal to the plain version", flush=True)
     return errs
+
+
+WINDOW_SWEEP = tuple((4099, W, C) for W in (1, 5, 8, 33, 256, 1024)
+                     for C in (1, 3, 4, 5)) + ((99, 8, 40), (99, 33, 40))
+
+
+def window_case(rng, N, W, C):
+    """A window store (N, W, C) ~ 10 N(0, 1) with NaN (canonical and with
+    payloads), infinities, -0.0 and subnormals among its entries, streams
+    3 and 4 of zeros alternating in sign (from -0.0 and from +0.0), and
+    counts from 0 to W: the first five streams empty, full, full, full
+    and full, 64 more full."""
+    import numpy as np
+    v = (rng.standard_normal((N, W, C)) * 10).astype(np.float32)
+    flat = v.reshape(-1)
+    for x in (np.nan, -0.0, 1e-40, -3e-39, np.inf, -np.inf):
+        flat[rng.integers(0, v.size, 64)] = x
+    flat[rng.integers(0, v.size, 32)] = np.array(
+        [0x7fc12345, 0xffa00001], np.uint32).view(np.float32)[
+            rng.integers(0, 2, 32)]
+    sign = (np.arange(W) % 2 == 1)[:, None]
+    v[3] = np.where(sign, 0.0, -0.0)
+    v[4] = np.where(sign, -0.0, 0.0)
+    count = rng.integers(0, W + 1, N).astype(np.int32)
+    count[:5] = (0, W, W, W, W)
+    count[rng.integers(0, N, 64)] = W
+    return v, count
+
+
+def offset_view(torch, values):
+    """A copy of ``values`` that starts one float into its buffer: its base
+    is not 16-byte aligned, so the window aggregates stage it by 4-byte
+    copies."""
+    buf = torch.empty(values.numel() + 1, device=values.device)
+    view = buf[1:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def window_agg_sweep(torch, dev, rng, shapes):
+    """``window_agg`` bitwise against its plain version at each (N, W, C)
+    of ``shapes``, on the aligned store and, where that takes the bulk
+    copies, on a view one float into its buffer (the 4-byte copies).
+    Returns (max abs error, the cases run)."""
+    from repro_torch.kernels.window_agg.kernel import plan_window_agg
+    from repro_torch.kernels.window_agg.ops import window_agg
+    err, cases = 0.0, []
+    for N, W, C in shapes:
+        v, count = window_case(rng, N, W, C)
+        values = torch.from_numpy(v).to(dev)
+        cnt = torch.from_numpy(count).to(dev)
+        want = window_agg(values, cnt, use_kernel=False)
+        stores = [values]
+        while True:
+            launch, got = plan_window_agg(stores[-1], cnt)
+            launch()
+            torch.cuda.synchronize()
+            path = launch.plan.staging
+            for k in want:
+                err = max(err, compare(f"window_agg ({N}, {W}, {C}) {path} "
+                                       f"{k}", got[k], want[k]))
+            cases.append(f"({N}, {W}, {C}) {path}")
+            if path != "bulk":
+                break
+            stores.append(offset_view(torch, values))
+    return err, cases
 
 
 def exchange_case(rng, D, W, C, E, mode):
@@ -837,6 +902,23 @@ def gather_case(rng, N, F, M, dtype):
     return table, rng.integers(-2, N + 2, M).astype(np.int32)
 
 
+def snapshot_case(rng, S, L, C, M):
+    """S shards' (L, C) float32 value planes with -0.0, subnormals, NaN
+    payloads and infinities, their (L,) int32 timestamps over the whole
+    range, and M ids from -2 to S L + 1 for ``by_sid_snapshot``."""
+    import numpy as np
+    vals, ts = [], []
+    for _ in range(S):
+        v = rng.standard_normal((L, C)).astype(np.float32)
+        v.reshape(-1)[rng.integers(0, L * C, len(FLOAT_SPECIALS))] = \
+            np.array(FLOAT_SPECIALS, np.uint32).view(np.float32)
+        t = rng.integers(-2**31, 2**31 - 1, L).astype(np.int32)
+        t[rng.integers(0, L, 2)] = (-2**31, 2**31 - 1)
+        vals.append(v)
+        ts.append(t)
+    return vals, ts, rng.integers(-2, S * L + 2, M).astype(np.int32)
+
+
 def dispatch_case(rng, B, F, n_tab, N):
     """Events and tables for ``stream_dispatch``: valid events with sids
     outside [0, n_tab), out-table entries below -1 and at or past the N
@@ -862,8 +944,9 @@ def phase_dispatch_kernels(torch, dev, cfg, D):
     and adversarial inputs.  Returns the max abs error of each (0.0)."""
     import numpy as np
     from repro_torch.kernels.stream_dispatch.kernel import (
-        onehot_gather_call, stream_dispatch_call)
-    from repro_torch.kernels.stream_dispatch.ops import (onehot_gather,
+        by_sid_snapshot_call, onehot_gather_call, stream_dispatch_call)
+    from repro_torch.kernels.stream_dispatch.ops import (by_sid_snapshot,
+                                                         onehot_gather,
                                                          stream_dispatch)
     rng = np.random.default_rng(SEED + 5)
     N, F, B, C = cfg.n_streams, cfg.max_out, cfg.batch, cfg.channels
@@ -882,6 +965,36 @@ def phase_dispatch_kernels(torch, dev, cfg, D):
     print(f"[kernels] onehot_gather at {', '.join(shapes)}, int32 and "
           f"float32 tables (ids -2..N+1; -0.0, subnormals, NaN payloads, "
           f"infinities): bitwise equal to the plain version", flush=True)
+    err_s, shapes = 0.0, []
+    for (S, L, Cs, M) in [(1, 64, 4, 77), (2, 300, 4, 513), (4, N // D, C, N),
+                          (4, 97, 3, 200), (3, 50, 1, 64), (2, 64, 6, 100)]:
+        vals, ts, ids = snapshot_case(rng, S, L, Cs, M)
+        vals = [torch.from_numpy(x).to(dev) for x in vals]
+        ts = [torch.from_numpy(x).to(dev) for x in ts]
+        ids = torch.from_numpy(ids).to(dev)
+        got = by_sid_snapshot_call(vals, ts, ids)
+        want = by_sid_snapshot(vals, ts, ids, use_kernel=False)
+        torch.cuda.synchronize()
+        err_s = max(err_s, compare(f"by_sid_snapshot {S} x ({L}, {Cs}) "
+                                   f"M={M}", got, want))
+        shapes.append(f"{S} x ({L}, {Cs}) x {M}")
+    # a shard plane that is a view 4 bytes past a 16-byte boundary takes
+    # the 4-byte words
+    flat = torch.from_numpy(snapshot_case(rng, 1, 129, 4, 1)[0][0]).to(dev)
+    flat = flat.reshape(-1)
+    planes = [flat[1:513].view(128, 4), flat[:512].view(128, 4)]
+    tss = [torch.arange(128, dtype=torch.int32, device=dev),
+           torch.arange(128, dtype=torch.int32, device=dev) * -3]
+    ids = torch.arange(-1, 257, dtype=torch.int32, device=dev)
+    err_s = max(err_s, compare(
+        "by_sid_snapshot unaligned planes",
+        by_sid_snapshot_call(planes, tss, ids),
+        by_sid_snapshot(planes, tss, ids, use_kernel=False)))
+    print(f"[kernels] by_sid_snapshot at {', '.join(shapes)} and two "
+          f"unaligned plane views (ids -2..S L+1; -0.0, subnormals, NaN "
+          f"payloads, infinities; INT32_MIN/MAX timestamps): values and "
+          f"timestamps bitwise equal to the plain version", flush=True)
+    err_g = max(err_g, err_s)
     err_d, shapes = 0.0, []
     for (n_tab, Nd, Fd, Bd) in [(64, 64, 4, 16), (256, 256, 16, 64),
                                 (N, N, F, B), (N // D, N, F, B),
@@ -1185,7 +1298,7 @@ def phase_suite(torch, dev, counters, n_shards=1):
     rounds = n_steps * SUITE["K"]
     want = {"fused_round_call": rounds} if n_shards == 1 else {
         "sched_pop_call": n_shards * rounds, "apply_programs_call": rounds,
-        "exchange_compact_call": rounds, "onehot_gather_call": rounds}
+        "exchange_compact_call": rounds, "by_sid_snapshot_call": rounds}
     if any(launches[k] != n for k, n in want.items()) \
             or launches["window_agg_call"] < 1:
         fail(f"IoT {tag}: launches {launches} in {n_steps} supersteps")
@@ -1380,7 +1493,7 @@ def phase_sharded(torch, dev, reg, sources, path, counters, waves, heavy,
     if [table_ptrs(e) for e in (e_k, e_p)] != ptrs:
         fail(f"sharded {path}: an edit or a round reallocated a table")
     want = {"sched_pop_call": SHARDS * rounds, "exchange_compact_call": rounds,
-            "onehot_gather_call": rounds,
+            "by_sid_snapshot_call": rounds,
             "apply_programs_call": rounds if path == "fused" else 0}
     for name, n in want.items():
         if launches[name] != n:
@@ -1556,8 +1669,8 @@ def phase_dispatch(torch, dev, reg_staged, reg_fused, sources, counters,
     rounds under the sync debug mode and equal to K eager rounds; heavy
     4-shard fused rounds (one ``stream_dispatch`` per shard against the
     shard's out-table and the global timestamps, and one
-    ``onehot_gather`` of the by-sid value snapshot); a few heavy 4-shard
-    staged rounds.  Returns the launches of each path's kernel run and
+    ``by_sid_snapshot`` of the by-sid values and timestamps); a few heavy
+    4-shard staged rounds.  Returns the launches of each path's kernel run and
     the kernel engines of the single staged and 4-shard fused runs."""
     B = reg_staged.cfg.batch
 
@@ -1598,9 +1711,9 @@ def phase_dispatch(torch, dev, reg_staged, reg_fused, sources, counters,
         kept[tag], _, launches, n_rounds = dispatch_run(
             torch, dev, f"{tag} heavy", copy_registry(reg, **sharded), path,
             counters, rounds_run(n, seed, warm), SHARDS)
-        if launches["onehot_gather_call"] != n_rounds:
-            fail(f"{tag}: onehot_gather launched "
-                 f"{launches['onehot_gather_call']} times in {n_rounds} "
+        if launches["by_sid_snapshot_call"] != n_rounds:
+            fail(f"{tag}: by_sid_snapshot launched "
+                 f"{launches['by_sid_snapshot_call']} times in {n_rounds} "
                  f"rounds")
         out[tag] = launches
     return out, kept
@@ -1937,70 +2050,114 @@ def launch_ms(launch, name: str):
 
 
 def time_dispatch_kernels(torch, e_single, e_shard, sources, errs,
-                          launches):
+                          launches, probe_lib):
     """``stream_dispatch`` at the single staged round's shape and at the
-    4-shard round's, and ``onehot_gather`` at the 4-shard snapshot's
-    (inputs recorded from one round of phase 12's kernel engines), timed
-    alone beside their plain versions, bounds and ``torch.index_select``
-    of the same rows (the nearest single PyTorch call; it does no
-    masking).  Both kernels are far shorter than a launch from the host:
-    their times and the library call's are device times (``launch_ms``)."""
+    4-shard round's, and the by-sid snapshot (``onehot_gather_kernel``
+    through ``by_sid_snapshot``) at the 4-shard round's (inputs recorded
+    from one round of phase 12's kernel engines), timed alone beside
+    their plain versions, bounds and ``torch.index_select`` of the same
+    rows (the nearest single PyTorch call; it does no masking).  Both
+    kernels are far shorter than a launch from the host: their times and
+    the library call's are device times (``launch_ms``).  Then their
+    launch floor: an empty kernel in one profiler window with
+    ``exchange_compact``, the snapshot and ``stream_dispatch`` at the
+    4-shard round's inputs."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.round_fuse import kernel as RF
     from repro_torch.kernels.stream_dispatch import kernel as K
-    from repro_torch.kernels.stream_dispatch.ops import (onehot_gather,
+    from repro_torch.kernels.stream_dispatch.ops import (by_sid_snapshot,
                                                          stream_dispatch)
-    plan_sd, plan_og = K.plan_stream_dispatch, K.plan_onehot_gather
+    plan_sd, plan_snap = K.plan_stream_dispatch, K.plan_by_sid_snapshot
 
-    def report(tag, name, launch, plain_fn, lib_fn, n_bytes, what):
-        ms, ev, host, prof, src = launch_ms(launch, f"{name}_kernel")
+    def report(tag, name, kernel, launch, plain_fn, lib_fn, n_bytes, what,
+               lib_what):
+        ms, ev, host, prof, src = launch_ms(launch, f"{kernel}_kernel")
         lib, lib_ev, lib_host, _, lib_src = launch_ms(lib_fn, "")
         plain = time_ms(plain_fn, reps=20)
         bound, by = bound_ms(n_bytes, 0, 0.0)
         print(f"[timing] {name} at {tag}: kernel {ms} ms ({src}; CUDA "
               f"events over 200 back-to-back launches {ev} ms, host enqueue "
               f"{host} ms per launch, profiler {prof} ms); plain {plain} "
-              f"ms; torch.index_select of the same rows {lib} ms "
-              f"({lib_src}; events {lib_ev} ms, host {lib_host} ms; no "
-              f"masking); bound {bound} ms ({by}; {n_bytes} bytes: {what})",
-              flush=True)
-        return dict(name=name, route="cuda",
+              f"ms; {lib_what} {lib} ms ({lib_src}; events {lib_ev} ms, host "
+              f"{lib_host} ms; no masking); bound {bound} ms ({by}; "
+              f"{n_bytes} bytes: {what})", flush=True)
+        return dict(name=kernel, route="cuda",
                     source="src/repro_torch/kernels/stream_dispatch/csrc/"
                            "stream_dispatch.cu",
-                    launches=launches[f"{name}_call"],
-                    max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                    launches=launches[kernel],
+                    max_abs_err=errs[kernel], ms=ms, plain_ms=plain,
                     bound_ms=bound, bound_by=by, library_ms=lib)
 
-    rows = []
+    rows, floor_launches = [], {}
     for tag, eng in (("single staged", e_single),
                      (f"{SHARDS}-shard", e_shard)):
-        (a, kw), = record_plans(torch, eng, sources, K,
-                                ("stream_dispatch",)).values()
+        rec = record_plans(torch, eng, sources, K,
+                           ("stream_dispatch",) if eng is e_single else
+                           ("stream_dispatch", "by_sid_snapshot"))
+        a, kw = rec["stream_dispatch"]
         sid, ts, valid, out_table, tstab = a
         n_tab, F = out_table.shape
         idx = torch.clamp(sid, 0, n_tab - 1).long()
+        sd_launch = plan_sd(*a, **kw)[0]
         row = report(
             f"the {tag} round's shape ({sid.shape[0]} events, {int(valid.sum())} "
             f"valid, ({n_tab}, {F}) out-table, {tstab.shape[0]} timestamps, "
             f"with_early={kw.get('with_early', True)})", "stream_dispatch",
-            plan_sd(*a, **kw)[0],
+            "stream_dispatch", sd_launch,
             lambda: stream_dispatch(*a, **kw, use_kernel=False),
             lambda: torch.index_select(out_table, 0, idx),
             gather_bytes(sid, n_tab, F, valid) + sid.shape[0],
             "sid and valid flag per event, the valid events' out-table "
-            "rows, the targets")
+            "rows, the targets", "torch.index_select of the same rows")
         if not rows:
             rows.append(dict(row, replaces="src/repro/kernels/"
                              "stream_dispatch/ops.py:29"))
-    (a, _), = record_plans(torch, e_shard, sources, K,
-                           ("onehot_gather",)).values()
-    table, ids = a
-    idx = ids.long()
-    rows.append(dict(report(
-        f"the {SHARDS}-shard snapshot's shape ({tuple(table.shape)} "
-        f"{table.dtype} table, {ids.shape[0]} ids)", "onehot_gather",
-        plan_og(*a)[0], lambda: onehot_gather(*a, use_kernel=False),
-        lambda: torch.index_select(table, 0, idx),
-        gather_bytes(ids, *table.shape), "the ids, the rows, the output"),
-        replaces="src/repro/kernels/stream_dispatch/kernel.py:41"))
+        if eng is e_single:
+            continue
+        floor_launches["stream_dispatch"] = sd_launch
+        vals, stamps, ids = rec["by_sid_snapshot"][0]
+        S, (L, C) = len(vals), vals[0].shape
+        stacked = torch.stack(list(vals)).reshape(S * L, C)
+        lidx = ids.long()
+        snap_launch = plan_snap(vals, stamps, ids)[0]
+        floor_launches["onehot_gather"] = snap_launch
+        rows.append(dict(report(
+            f"the {SHARDS}-shard snapshot's shape ({S} shards of ({L}, {C}) "
+            f"values and ({L},) timestamps, {ids.shape[0]} ids; one "
+            f"launch, by_sid_snapshot)", "by_sid_snapshot", "onehot_gather",
+            snap_launch,
+            lambda: by_sid_snapshot(vals, stamps, ids, use_kernel=False),
+            lambda: torch.index_select(stacked, 0, lidx),
+            gather_bytes(ids, S * L, C + 1),
+            "the ids, each distinct row's values and timestamp, both "
+            "outputs", "torch.index_select of the same value rows from a "
+            "stacked table made beforehand (values only)"),
+            replaces="src/repro/kernels/stream_dispatch/kernel.py:41"))
+    (xa, _), = record_plans(torch, e_shard, sources, RF,
+                            ("exchange_compact",)).values()
+    floor_launches["exchange_compact"] = RF.plan_exchange_compact(*xa)[0]
+    probe = ctypes.CDLL(str(probe_lib))
+    probe.empty_launch.argtypes = [ctypes.c_void_p]
+    stream = _build.stream_ptr(torch.device("cuda", 0))
+
+    def empty():
+        if probe.empty_launch(stream):
+            fail("the empty kernel did not launch")
+
+    e_ev, e_host = time_launches([empty], 200)
+    names = ["empty_kernel", *(f"{k}_kernel" for k in floor_launches)]
+    prof = profile_kernels([empty, *floor_launches.values()], names)
+    floor = prof["empty_kernel"]
+    if any(prof[k] is None for k in names):
+        fail(f"the launch-floor window missed a kernel: {prof}")
+    print(f"[timing] launch floor ({SHARDS}-shard round's inputs, one "
+          f"profiler window of 50 rounds of {len(names)} launches): empty "
+          f"kernel {floor} ms device (CUDA events over 200 back-to-back "
+          f"launches {e_ev} ms, host enqueue {e_host} ms per launch); "
+          + "; ".join(f"{k} {prof[f'{k}_kernel']} ms = "
+                      f"{prof[f'{k}_kernel'] / floor} x the floor"
+                      for k in floor_launches), flush=True)
     return rows
 
 
@@ -2013,46 +2170,54 @@ def window_agg_cost(count, N: int, C: int):
     return valid * C * 4 + N * 4 + 5 * N * C * 4, 3 * valid * C + N * C
 
 
+WINDOW_PREDICTION = {      # written before the redesign's first timed run
+    "suite": (0.003, 0.006), "full": (0.025, 0.045)}
+
+
 def time_window_agg(torch, suite, errs, launches):
     """``window_agg`` at the suite's store (the main path's shape and
     counts) and at (4096, 1024, 4) with every window full (64 MB, more
-    than the 50 MB L2, so the kernel reads HBM)."""
+    than the 50 MB L2, so the kernel reads HBM), each on the aligned
+    store (bulk copies) and on a view one float into its buffer (4-byte
+    copies), beside the prediction."""
     from repro_torch.kernels.window_agg.kernel import plan_window_agg
     from repro_torch.kernels.window_agg.ops import window_agg
     store = suite.stats.store
     N, W, C = store.values.shape
     count = torch.clamp(store.total, max=W)
-    n_bytes, n_ops = window_agg_cost(count, N, C)
-    full_bytes = N * W * C * 4 + N * 4 + 5 * N * C * 4
-    bound, by = bound_ms(n_bytes, n_ops, 0.0)
-    launch, _ = plan_window_agg(store.values, count)
-    ms, host = time_launches([launch], 200)
-    prof = profile_kernels([launch], ["window_agg_kernel"])
-    plain = time_ms(lambda: window_agg(store.values, count,
-                                       use_kernel=False), reps=5)
-    print(f"[timing] window_agg at the suite's ({N}, {W}, {C}), "
-          f"{int(count.sum())} valid entries: kernel {ms} ms (CUDA events "
-          f"over 200 back-to-back launches; host enqueue {host} ms per "
-          f"launch), profiler {prof['window_agg_kernel']} ms; plain {plain} "
-          f"ms; bound {bound} ms ({by}; {n_bytes} bytes this data needs, "
-          f"{full_bytes} with every window full; {n_ops} operations); no "
-          f"single PyTorch call computes the five aggregates, so no "
-          f"library time", flush=True)
     gen = torch.Generator(device=store.values.device).manual_seed(SEED)
     big = torch.randn((4096, 1024, 4), generator=gen,
                       device=store.values.device)
     full = torch.full((4096,), 1024, dtype=torch.int32, device=big.device)
-    b_bytes, b_ops = window_agg_cost(full, 4096, 4)
-    b_bound, b_by = bound_ms(b_bytes, b_ops, 0.0)
-    b_launch, _ = plan_window_agg(big, full)
-    b_ms, b_host = time_launches([b_launch], 50)
-    b_prof = profile_kernels([b_launch], ["window_agg_kernel"], n=20)
-    b_plain = time_ms(lambda: window_agg(big, full, use_kernel=False), reps=3)
-    print(f"[timing] window_agg at (4096, 1024, 4), every window full: "
-          f"kernel {b_ms} ms (50 launches; host {b_host} ms per launch), "
-          f"profiler {b_prof['window_agg_kernel']} ms; plain {b_plain} ms; "
-          f"bound {b_bound} ms ({b_by}; {b_bytes} bytes) = "
-          f"{b_bytes / (b_ms * 1e-3) / 1e12} TB/s achieved", flush=True)
+    out = {}
+    for tag, vals, cnt in (("suite", store.values, count),
+                           ("full", big, full)):
+        n_bytes, n_ops = window_agg_cost(cnt, *vals.shape[::2])
+        bound, by = bound_ms(n_bytes, n_ops, 0.0)
+        times = {}
+        for store_v in (vals, offset_view(torch, vals)):
+            launch, _ = plan_window_agg(store_v, cnt)
+            times[launch.plan.staging] = launch_ms(launch,
+                                                   "window_agg_kernel")
+        plain = time_ms(lambda: window_agg(vals, cnt, use_kernel=False),
+                        reps=5 if tag == "suite" else 3)
+        lo, hi = WINDOW_PREDICTION[tag]
+        own = next(iter(times.values()))        # the plan's own staging
+        where = "the suite's" if tag == "suite" else "every window full,"
+        print(f"[timing] window_agg at {where} {tuple(vals.shape)}, "
+              f"{int(cnt.sum())} valid entries: "
+              + "; ".join(f"{k} staging {v[0]} ms ({v[4]}; CUDA events "
+                          f"over 200 back-to-back launches {v[1]} ms, host "
+                          f"enqueue {v[2]} ms per launch, profiler {v[3]} "
+                          f"ms)" for k, v in times.items())
+              + f"; predicted {lo}-{hi} ms; plain {plain} ms; bound {bound} "
+              f"ms ({by}; {n_bytes} bytes this data needs; {n_ops} "
+              f"operations) = {n_bytes / (own[0] * 1e-3) / 1e12} TB/s "
+              f"achieved on the plan's staging; no single PyTorch call "
+              f"computes the five aggregates, so no library time",
+              flush=True)
+        out[tag] = (own[0], plain, bound, by)
+    ms, plain, bound, by = out["suite"]
     return dict(
         name="window_agg", route="cuda",
         source="src/repro_torch/kernels/window_agg/csrc/window_agg.cu",
@@ -3114,7 +3279,7 @@ def main() -> None:
                                                        fused_round_call)
     from repro_torch.kernels.sched_pop.kernel import sched_pop_call
     from repro_torch.kernels.stream_dispatch.kernel import (
-        onehot_gather_call, stream_dispatch_call)
+        by_sid_snapshot_call, onehot_gather_call, stream_dispatch_call)
     from repro_torch.kernels.window_agg.kernel import window_agg_call
     from repro_torch.kernels.flash_attention.kernel import flash_attention_call
     from repro_torch.kernels.selective_scan.kernel import selective_scan_call
@@ -3160,7 +3325,8 @@ def main() -> None:
     reg_fused = copy_registry(reg)          # before phase 5 adds tanh
     counters = (fused_round_call, sched_pop_call, window_agg_call,
                 apply_programs_call, exchange_compact_call,
-                stream_dispatch_call, onehot_gather_call)
+                stream_dispatch_call, onehot_gather_call,
+                by_sid_snapshot_call)
     eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 48,
                                      8, fused_round_call, counters)
 
@@ -3217,11 +3383,14 @@ def main() -> None:
                                 suite_launches["window_agg_call"]))
     rows += time_shard_kernels(torch, e_sh, sources, errs, sh_launches,
                                dep_cycles, clock_hz)
+    d_runs = d_launches.values()
     rows += time_dispatch_kernels(
         torch, d_engines["single staged"], d_engines[f"{SHARDS}-shard fused"],
-        sources, errs, {k: sum(run[k] for run in d_launches.values())
-                        for k in ("stream_dispatch_call",
-                                  "onehot_gather_call")})
+        sources, errs, {
+            "stream_dispatch": sum(r["stream_dispatch_call"] for r in d_runs),
+            "onehot_gather": sum(r["onehot_gather_call"]
+                                 + r["by_sid_snapshot_call"] for r in d_runs)},
+        probe[1])
     # ---- 14. the model kernels against their plain versions ---------------
     del eng, suite, e_sh, d_engines         # the engines' device memory
     torch.cuda.empty_cache()

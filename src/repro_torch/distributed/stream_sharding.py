@@ -17,15 +17,15 @@ sharded == single-device bitwise whenever no bucket overflows
 The shards are emulated on one device: every per-shard table and state
 leaf carries a leading ``(n_shards,)`` axis (the layout of the JAX
 package's sharded arrays read back with ``np.asarray``), the JAX
-package's ``all_gather`` of values and timestamps becomes a gather of
-the stacked rows by ``sid_to_flat`` (the values through the
-``onehot_gather`` kernel), and its two
+package's ``all_gather`` of values and timestamps becomes one gather of
+every shard's rows by ``sid_to_flat`` (the ``by_sid_snapshot`` kernel,
+which reads the shards' planes in place), and its two
 ``all_to_all`` calls become a transpose of the ``(S, S, E, ...)`` buckets
 across the sending-shard axis.  The round is cut at those collectives:
 
     phase 0 + pop      every shard (the snapshot follows every ingest)
-    snapshot           a gather of the stacked values (one
-                       ``onehot_gather`` launch) and timestamps
+    snapshot           values and timestamps by sid (one
+                       ``by_sid_snapshot`` launch)
     stage 1 + compact  every shard's ``fanout_fn``; one
                        ``exchange_compact`` launch serves all senders
     exchange           a transpose
@@ -56,7 +56,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.registry import EngineTables
 from repro_torch.kernels.round_fuse import ref as rf_ref
 from repro_torch.kernels.round_fuse.ops import apply_programs, exchange_compact
-from repro_torch.kernels.stream_dispatch.ops import onehot_gather
+from repro_torch.kernels.stream_dispatch.ops import by_sid_snapshot
 
 _DURABILITY = ("the durability plane (ROADMAP.md, queue 1, item 1: "
                "durability)")
@@ -332,11 +332,9 @@ def make_shard_round(cfg: EngineConfig, n_shards: int, n_local: int,
             events[d] = (e_sid, e_vals, e_ts, e_its, e_loc, e_valid)
 
         # ---- post-ingest snapshot: the global by-sid view ----------------
-        values_by_sid = onehot_gather(
-            torch.stack([s.values for s in states]).reshape(S * L, C),
+        values_by_sid, ts_by_sid = by_sid_snapshot(
+            [s.values for s in states], [s.timestamps for s in states],
             gmap.sid_to_flat, use_kernel=use_kernel)
-        ts_by_sid = torch.stack([s.timestamps for s in states]) \
-            .reshape(S * L)[gmap.sid_to_flat.long()]
 
         # ---- stage 1: fan-out via the shard-local out-tables -------------
         items = []

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention/csrc/flash_attention.cu, mlstm_chunk/csrc/mlstm_chunk.cu):
-// mbarriers, the 128-byte-swizzle wgmma shared-memory descriptor, the
-// warpgroup product wrappers in inline PTX, and cuTensorMapEncodeTiled
-// looked up through the runtime (no -lcuda).
+// (flash_attention/csrc/flash_attention.cu, mlstm_chunk/csrc/mlstm_chunk.cu)
+// and the window aggregates (window_agg/csrc/window_agg.cu):
+// mbarriers, the 1-D bulk copy, the 128-byte-swizzle wgmma shared-memory
+// descriptor, the warpgroup product wrappers in inline PTX, and
+// cuTensorMapEncodeTiled looked up through the runtime (no -lcuda).
 //
 // wgmma_ss: D[64 x 64] (+)= A[64 x 16] . B[16 x 64] with A and B read from
 // shared memory through descriptors, both K-major (scale_d 0 overwrites D).
@@ -46,6 +47,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
+}
+
+// 1-D bulk copy (TMA, no tensor map) of `bytes` from device memory to this
+// CTA's shared memory, completing its bytes on the mbarrier `bar`.  Source,
+// destination and size must be multiples of 16 bytes.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // A wgmma shared-memory descriptor of a 128-byte-swizzled tile: address,

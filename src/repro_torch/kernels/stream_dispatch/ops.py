@@ -8,17 +8,20 @@
   (``create_engine(reg, fanout_fn=make_fanout())``), like the JAX
   package's ``repro.kernels.stream_dispatch.ops.make_fanout``.
 * ``onehot_gather`` — the row gather with zero rows for out-of-range
-  ids; the sharded round reads its by-sid snapshot of stream values
-  through it.
+  ids.
+* ``by_sid_snapshot`` — the same gather over the S shards' value and
+  timestamp planes, read in place, in one launch: the sharded round's
+  by-sid snapshot.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import wants_kernel
-from repro_torch.kernels.stream_dispatch.ref import (onehot_gather_ref,
+from repro_torch.kernels.stream_dispatch.ref import (by_sid_snapshot_ref,
+                                                     onehot_gather_ref,
                                                      stream_dispatch_ref)
 
 
@@ -32,6 +35,23 @@ def onehot_gather(table: torch.Tensor, ids: torch.Tensor, *,
             onehot_gather_call
         return onehot_gather_call(table, ids)
     return onehot_gather_ref(table, ids)
+
+
+def by_sid_snapshot(values: Sequence[torch.Tensor],
+                    timestamps: Sequence[torch.Tensor], ids: torch.Tensor, *,
+                    use_kernel: Optional[bool] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The by-sid snapshot of S shards (semantics:
+    ``ref.by_sid_snapshot_ref``): ``values`` (L, C) float32 and
+    ``timestamps`` (L,) int32 per shard, ``ids`` (M,) into their flat
+    (S L) rows -> ((M, C) float32, (M,) int32).  ``use_kernel=None``
+    follows the first value plane's device; ``False`` runs the plain
+    version on any device."""
+    if wants_kernel(use_kernel, values[0]):
+        from repro_torch.kernels.stream_dispatch.kernel import \
+            by_sid_snapshot_call
+        return by_sid_snapshot_call(values, timestamps, ids)
+    return by_sid_snapshot_ref(values, timestamps, ids)
 
 
 def stream_dispatch(sid, ts, valid, out_table, timestamps, *,

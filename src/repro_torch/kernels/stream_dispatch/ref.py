@@ -13,7 +13,7 @@ timestamp of 0 (the JAX ref clamps the target).  On the engine's inputs
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -28,6 +28,23 @@ def onehot_gather_ref(table: torch.Tensor, ids: torch.Tensor
     ok = (ids >= 0) & (ids < N)
     rows = table[torch.clamp(ids, 0, N - 1).long()]
     return torch.where(ok[:, None], rows.to(torch.float32), 0.0)
+
+
+def by_sid_snapshot_ref(values: Sequence[torch.Tensor],
+                        timestamps: Sequence[torch.Tensor], ids: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded round's by-sid snapshot: the S shards' ``values`` (L, C)
+    and ``timestamps`` (L,) int32 planes stacked into one flat (S L) row
+    space and gathered at ``ids`` (M,) -> ``(values_by_sid (M, C) float32,
+    ts_by_sid (M,) int32)``.  Rows keep their bits; an id outside
+    [0, S L) reads zeros in both (the engine's ``sid_to_flat`` holds
+    none)."""
+    S, (L, C) = len(values), values[0].shape
+    vals = onehot_gather_ref(torch.stack(list(values)).reshape(S * L, C), ids)
+    ts_all = torch.stack(list(timestamps)).reshape(S * L)
+    ok = (ids >= 0) & (ids < S * L)
+    ts = torch.where(ok, ts_all[torch.clamp(ids, 0, S * L - 1).long()], 0)
+    return vals, ts
 
 
 def stream_dispatch_ref(sid, ts, valid, out_table, timestamps, *,

@@ -178,20 +178,43 @@ def test_engine_on_the_card_equals_the_cpu(dev, fused):
                 _assert_bits(getattr(eg.state, f), getattr(ec.state, f))
 
 
-@pytest.mark.parametrize("W,C", [(1, 1), (8, 4), (33, 1), (256, 4)])
-def test_window_agg_kernel_matches_plain(dev, W, C):
-    from repro_torch.kernels.window_agg.kernel import window_agg_call
+@pytest.mark.parametrize("W,C", [(1, 1), (8, 4), (33, 1), (256, 4),
+                                 (1, 4), (5, 3), (7, 5), (33, 4), (64, 5),
+                                 (1024, 1), (1024, 3), (1024, 4), (8, 40)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_window_agg_kernel_matches_plain(dev, W, C, offset):
+    """Bitwise against the plain version on both stagings: bulk copies on
+    an aligned store where W C % 4 == 0, and 4-byte copies where W C % 4
+    != 0 and on a view that starts ``offset`` floats into its buffer.  N
+    a multiple of no warp's streams, counts of 0, W and in between,
+    -0.0, NaN (canonical and with payloads), infinities, subnormals, and
+    windows of zeros alternating in sign (the order of -0.0 below
+    +0.0)."""
+    from repro_torch.kernels.window_agg.kernel import (window_agg_call,
+                                                       window_agg_plan)
     from repro_torch.kernels.window_agg.ops import window_agg
     rng = np.random.default_rng(W + C)
-    N = 37                              # not a multiple of a CTA's streams
+    N = 37                              # not a multiple of a warp's streams
     v = (rng.standard_normal((N, W, C)) * 10).astype(np.float32)
     flat = v.reshape(-1)
     flat[rng.integers(0, v.size, 6)] = -0.0
     flat[rng.integers(0, v.size, 6)] = 1e-40
+    flat[rng.integers(0, v.size, 4)] = np.array(
+        [0x7fc12345, 0xffa00001, 0x7f800000, 0xff800000],
+        np.uint32).view(np.float32)     # NaN payloads, infinities
     v[2, 0, 0] = np.nan
+    sign = (np.arange(W) % 2 == 1)[:, None]
+    v[3] = np.where(sign, 0.0, -0.0)    # zeros alternating in sign
+    v[4] = np.where(sign, -0.0, 0.0)
     count = rng.integers(0, W + 1, N).astype(np.int32)
-    count[0], count[1] = 0, W
-    values, cnt = torch.from_numpy(v).to(dev), torch.from_numpy(count).to(dev)
+    count[0], count[1], count[3], count[4] = 0, W, W, W
+    buf = torch.empty(v.size + offset, device=dev)
+    values = buf[offset:].view(N, W, C)
+    values.copy_(torch.from_numpy(v))
+    cnt = torch.from_numpy(count).to(dev)
+    plan = window_agg_plan(N, W, C, values.data_ptr() % 16 == 0)
+    assert plan.staging == ("bulk" if offset == 0 and (W * C) % 4 == 0
+                            else "load4")
     before = window_agg_call.launches
     got = window_agg_call(values, cnt)
     assert window_agg_call.launches == before + 1
@@ -462,6 +485,54 @@ def test_onehot_gather_kernel_matches_plain(dev, N, F, M, dtype):
     got = onehot_gather_call(t, i)
     assert onehot_gather_call.launches == before + 1
     _assert_bits(got, onehot_gather(t, i, use_kernel=False))
+
+
+@pytest.mark.parametrize("S,L,C,M", [(1, 64, 4, 100), (2, 300, 4, 700),
+                                     (4, 1024, 4, 4096), (4, 97, 3, 200),
+                                     (2, 50, 1, 64), (4, 33, 6, 150)])
+def test_by_sid_snapshot_kernel_matches_plain(dev, S, L, C, M):
+    """The sharded round's by-sid snapshot in one launch, bitwise against
+    its plain version: ids from -2 to S L + 1 (zeros outside), -0.0,
+    subnormals, NaN payloads and infinities among the values, INT32_MIN
+    and INT32_MAX among the timestamps."""
+    from repro_torch.kernels.stream_dispatch.kernel import \
+        by_sid_snapshot_call
+    from repro_torch.kernels.stream_dispatch.ops import by_sid_snapshot
+    rng = np.random.default_rng(S * L + C)
+    specials = np.array([0x80000000, 0x00000001, 0x807fffff, 0x7fc12345,
+                         0xffa00001, 0x7f800000, 0xff800000],
+                        np.uint32).view(np.float32)
+    vals, ts = [], []
+    for _ in range(S):
+        v = rng.standard_normal((L, C)).astype(np.float32)
+        v.reshape(-1)[rng.integers(0, L * C, len(specials))] = specials
+        t = rng.integers(-2**31, 2**31 - 1, L).astype(np.int32)
+        t[:2] = (-2**31, 2**31 - 1)
+        vals.append(torch.from_numpy(v).to(dev))
+        ts.append(torch.from_numpy(t).to(dev))
+    ids = torch.from_numpy(
+        rng.integers(-2, S * L + 2, M).astype(np.int32)).to(dev)
+    before = by_sid_snapshot_call.launches
+    got = by_sid_snapshot_call(vals, ts, ids)
+    assert by_sid_snapshot_call.launches == before + 1
+    _assert_bits(got, by_sid_snapshot(vals, ts, ids, use_kernel=False))
+
+
+def test_by_sid_snapshot_reads_unaligned_planes(dev):
+    """Shard planes that are views 4 bytes past a 16-byte boundary take
+    4-byte words; more than 64 shards raise."""
+    from repro_torch.kernels.stream_dispatch.kernel import \
+        by_sid_snapshot_call
+    from repro_torch.kernels.stream_dispatch.ops import by_sid_snapshot
+    flat = torch.randn(129 * 4, device=dev)
+    vals = [flat[1:513].view(128, 4), flat[:512].view(128, 4)]
+    ts = [torch.arange(128, dtype=torch.int32, device=dev),
+          torch.arange(128, dtype=torch.int32, device=dev) * -3]
+    ids = torch.arange(-1, 257, dtype=torch.int32, device=dev)
+    _assert_bits(by_sid_snapshot_call(vals, ts, ids),
+                 by_sid_snapshot(vals, ts, ids, use_kernel=False))
+    with pytest.raises(ValueError, match="64"):
+        by_sid_snapshot_call(vals[:1] * 65, ts[:1] * 65, ids)
 
 
 @pytest.mark.parametrize("n_tab,N,F,B", [(64, 64, 4, 16), (1024, 4096, 16, 64),

@@ -40,8 +40,10 @@ from repro.kernels.stream_dispatch.ops import \
 from repro.kernels.stream_dispatch.ref import \
     onehot_gather_ref as j_onehot_gather_ref  # noqa: E402
 from repro_torch.core.engine import fanout_reference  # noqa: E402
+from repro_torch.kernels.stream_dispatch.kernel import \
+    word_lanes  # noqa: E402
 from repro_torch.kernels.stream_dispatch.ops import (  # noqa: E402
-    make_fanout, onehot_gather, stream_dispatch)
+    by_sid_snapshot, make_fanout, onehot_gather, stream_dispatch)
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
@@ -125,6 +127,49 @@ def _dispatch_case(rng, B, F, n_tab, N, adversarial):
 DISPATCH = [(64, 4, 16, 64, False), (256, 16, 64, 256, False),
             (64, 4, 16, 64, True), (256, 16, 64, 256, True),
             (64, 16, 33, 256, True), (300, 3, 20, 97, True)]
+
+
+@pytest.mark.parametrize("S,L,C,M", [(1, 64, 4, 100), (2, 300, 4, 512),
+                                     (4, 97, 3, 200), (4, 33, 1, 132)])
+def test_by_sid_snapshot_matches_repro(S, L, C, M):
+    """The sharded round's by-sid snapshot (plain version, one call for
+    values and timestamps) against ``repro``'s expression,
+    ``vals_all.reshape(S L, C)[sid_to_flat]`` and
+    ``ts_all.reshape(S L)[sid_to_flat]``, on ids in range (where XLA's
+    clamping and the port's zero rows agree); -0.0, subnormals, NaN
+    payloads and infinities keep their bits."""
+    rng = np.random.default_rng(S * L + C)
+    vals = rng.standard_normal((S, L, C)).astype(np.float32)
+    vals.reshape(-1)[rng.integers(0, vals.size, 7)] = np.array(
+        [0x80000000, 0x00000001, 0x807fffff, 0x7fc12345, 0xffa00001,
+         0x7f800000, 0xff800000], np.uint32).view(np.float32)
+    ts = rng.integers(I32_MIN, I32_MAX, (S, L)).astype(np.int32)
+    ids = rng.integers(0, S * L, M).astype(np.int32)
+    got_v, got_t = by_sid_snapshot(list(_t(vals)), list(_t(ts)), _t(ids))
+    want_v = jnp.asarray(vals).reshape(S * L, C)[jnp.asarray(ids)]
+    want_t = jnp.asarray(ts).reshape(S * L)[jnp.asarray(ids)]
+    assert got_v.dtype == torch.float32 and got_t.dtype == torch.int32
+    np.testing.assert_array_equal(_bits(got_v), _bits(want_v))
+    np.testing.assert_array_equal(_bits(got_t), _bits(want_t))
+
+
+def test_by_sid_snapshot_plain_reads_zeros_out_of_range():
+    """Ids outside [0, S L) read a zero row and a zero timestamp, as the
+    kernel does; the wrapper asks for the card to run the kernel, and the
+    kernel's word width follows the row width and the planes' addresses."""
+    vals = [torch.full((3, 2), -1.5), torch.full((3, 2), 2.5)]
+    ts = [torch.tensor([7, 8, 9], dtype=torch.int32),
+          torch.tensor([-4, -5, -6], dtype=torch.int32)]
+    ids = torch.tensor([-1, 0, 5, 6, 3], dtype=torch.int32)
+    v, t = by_sid_snapshot(vals, ts, ids)
+    assert v.tolist() == [[0.0, 0.0], [-1.5, -1.5], [2.5, 2.5], [0.0, 0.0],
+                          [2.5, 2.5]]
+    assert t.tolist() == [0, 7, -6, 0, -4]
+    with pytest.raises(ValueError, match="CUDA"):
+        by_sid_snapshot(vals, ts, ids, use_kernel=True)
+    assert word_lanes(4, [0, 4096]) == 4
+    assert word_lanes(4, [0, 8]) == 2 and word_lanes(6, [16]) == 2
+    assert word_lanes(4, [4]) == 1 and word_lanes(3, [0]) == 1
 
 
 @pytest.mark.parametrize("n_tab,F,B,N,adv", DISPATCH)

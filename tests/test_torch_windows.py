@@ -20,6 +20,8 @@ import repro.core.windows as JW  # noqa: E402
 import repro_torch.core.windows as PW  # noqa: E402
 from repro.kernels.window_agg.ops import window_agg_op  # noqa: E402
 from repro.kernels.window_agg.ref import window_agg_ref as j_ref  # noqa: E402
+from repro_torch.kernels.window_agg.kernel import (  # noqa: E402
+    RING_OFFSET, SMEM_LIMIT, STAGES, window_agg_plan)
 from repro_torch.kernels.window_agg.ops import window_agg  # noqa: E402
 
 EPS = float(np.finfo(np.float32).eps)
@@ -105,6 +107,50 @@ def test_window_agg_wrapper_needs_the_card_for_the_kernel():
     assert set(out) == {"sum", "mean", "max", "min", "count"}
     for k in out:
         assert out[k].shape == (3, 2) and not out[k].any()
+
+
+@pytest.mark.parametrize("N,W,C,aligned,want", [
+    (3586, 256, 4, True, "bulk"),       # the IoT suite's store
+    (4096, 1024, 4, True, "bulk"),
+    (4096, 1024, 4, False, "load4"),    # an unaligned base
+    (37, 5, 3, True, "load4"),          # W C % 4 != 0
+    (37, 5, 3, False, "load4"),
+    (37, 8, 4, False, "load4"),
+    (99, 33, 1, True, "load4"),
+    (99, 8, 40, True, "bulk"),          # two warps a stream
+    (5, 1, 4, True, "bulk"),
+    (7, 2, 3000, True, "bulk"),         # the smallest chunk
+])
+def test_window_agg_plan(N, W, C, aligned, want):
+    """The staging plan the launcher passes to the kernel: bulk copies
+    exactly where a ring row and the base are 16-byte aligned, else
+    4-byte copies, with the alignment changing nothing else; chunks of a
+    multiple of 4 entries; a row pitch of a multiple of 16 bytes that is
+    16 mod 128; the shared bytes of one warp's ring stages within one
+    CTA's limit; one-warp CTAs covering every stream and channel."""
+    plan = window_agg_plan(N, W, C, aligned)
+    assert plan.staging == want
+    G, parts = plan.streams_per_warp, plan.warps_per_stream
+    assert G == 32 // min(C, 32) and parts == -(-C // 32)
+    assert plan.blocks == -(-N // G) * parts
+    assert plan.chunk % 4 == 0 and 4 <= plan.chunk <= 64
+    assert plan.chunk <= max(4, -(-W // 4) * 4)
+    assert plan.pitch % 16 == 0 and plan.pitch % 128 == 16
+    assert plan.pitch >= plan.chunk * C * 4
+    assert plan.smem_bytes == RING_OFFSET + STAGES * G * plan.pitch \
+        <= SMEM_LIMIT
+    if want == "bulk":
+        # every chunk starts on a 16-byte boundary of its stream's row
+        assert (W * C) % 4 == 0 and (plan.chunk * C) % 4 == 0
+    other = window_agg_plan(N, W, C, not aligned)
+    assert other._replace(staging=want) == plan
+
+
+def test_window_agg_plan_refuses_what_no_cta_holds():
+    with pytest.raises(ValueError, match="shared bytes"):
+        window_agg_plan(4, 4, 5000)
+    with pytest.raises(ValueError, match="N, W, C >= 1"):
+        window_agg_plan(4, 0, 4)
 
 
 def _assert_store(js, ps):
