@@ -190,6 +190,36 @@ Phases, each printed on its own line:
     tensor work of its piece products (phase 19 also times the six plain
     sLSTM scans inside one bf16 prefill).
 
+22. Kill and resume at the smoke cell's width with retention rings of 16
+    and a dead-letter spool of 512 (``copy_registry(...,
+    retention_slots=16, dlq_slots=512)``), at 1 shard fused, 1 shard
+    staged (phase 5's ``tanh`` composite) and 4 shards fused: an engine
+    checkpointing every second superstep of K = 8 asynchronously
+    (``checkpoint_to``) is deleted after four supersteps and rebuilt by
+    ``restore_engine`` from the directory; it must equal an engine that
+    ran the same input without interruption and a plain-version engine,
+    at the resume point and after one round and two supersteps more
+    (every snapshot array: tables, state, stats, retention rings, dead
+    letters, backlog; every sink).  A truncated leaf of the newest
+    checkpoint must make ``load`` raise ``CheckpointCorrupt`` and
+    ``restore_engine`` fall back to the one before.  Times on the host
+    clock with the card synchronised: ``snapshot()`` and its bytes,
+    ``save_sync``, the blocking part of ``save_async``, ``restore_engine``
+    from disk, and the first round after the restore.
+23. Replay and redelivery at 1 and 4 shards, kernels against plain
+    bitwise after each step: a late joiner admitted with ``replay=True``,
+    quota-shed SUs drained and redelivered, a revoked stream's purged
+    queue redelivered (refused, spooled again and counted in
+    ``redeliver_rejected``), and the rounds after each.
+24. The resize chain 1 -> 2 -> 4 -> 2 -> 1 with a loaded queue at each
+    hop: each resize equal to ``restore_engine(snapshot, n_shards=M)``
+    and to the plain-version engine resized alike, also after a superstep
+    more, the kernels launched at each shard count (``exchange_compact``
+    and ``apply_programs`` at D = 2); ms per resize.  Then an
+    ``Autoscaler(min_shards=1, max_shards=4)`` on a burst and an idle
+    drain, through the kernels and through the plain versions: a
+    scale-up and a scale-down, the same events, the same final engine.
+
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero before them.
@@ -3245,6 +3275,449 @@ def time_mlstm(torch, inputs, err, n_launches, build, fmad):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phases 22-24: the durability and elastic planes at the smoke cell's width
+# --------------------------------------------------------------------------
+
+# retention rings and a dead-letter spool that hold real data
+DURABLE = dict(retention_slots=16, dlq_slots=512)
+SCRATCH = ROOT / "build"
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def compare_snapshots(tag, a, b) -> None:
+    """Fail unless two engines' snapshots agree: every table, state leaf,
+    stat, retention ring, dead letter, lookup map, plan array and backlog
+    entry bitwise, and the registry mirror and host counters equal."""
+    import torch
+    (xa, ma), (xb, mb) = a.snapshot(), b.snapshot()
+    if sorted(xa) != sorted(xb):
+        fail(f"{tag}: snapshot keys differ: {sorted(set(xa) ^ set(xb))}")
+    for k in xa:
+        compare(f"{tag} {k}", torch.from_numpy(xa[k]),
+                torch.from_numpy(xb[k]))
+    if ma != mb:
+        fail(f"{tag}: snapshot meta differs")
+
+
+def post_random(engines, sources, rng, n, base_ts) -> None:
+    """Post ``n`` SUs to random sources (repeats included, so bursts carry
+    over) to every engine alike."""
+    import numpy as np
+    picks = rng.integers(0, len(sources), n)
+    vals = rng.standard_normal((n, 4)).astype(np.float32)
+    ts = base_ts + rng.integers(0, 90, n)
+    for e in engines:
+        for j, v, t in zip(picks, vals, ts):
+            e.post(sources[j].sid, v.tolist(), int(t))
+
+
+def step_all(engines, K):
+    """One superstep of K rounds (one round for K = 1) on each engine;
+    returns each engine's per-round sinks."""
+    if K == 1:
+        return [[e.round()] for e in engines]
+    return [e.spool_sinks(e.superstep(K)) for e in engines]
+
+
+def compare_sinks(tag, runs) -> None:
+    """Every engine's per-round sinks against the first engine's."""
+    import torch
+    for i, run in enumerate(runs[1:], 1):
+        if len(run) != len(runs[0]):
+            fail(f"{tag}: engine {i} ran {len(run)} rounds")
+        for k, (a, b) in enumerate(zip(runs[0], run)):
+            compare(f"{tag} engine {i} round {k}",
+                    tuple(torch.as_tensor(x) for x in a),
+                    tuple(torch.as_tensor(x) for x in b))
+
+
+def want_launches(rounds, shards, path) -> dict:
+    """Kernel launches of ``rounds`` rounds at ``shards`` shards."""
+    if shards == 1:
+        return {("fused_round_call" if path == "fused"
+                 else "sched_pop_call"): rounds}
+    return {"sched_pop_call": shards * rounds,
+            "exchange_compact_call": rounds, "by_sid_snapshot_call": rounds,
+            "apply_programs_call": rounds if path == "fused" else 0}
+
+
+def check_launches(tag, counters, want) -> dict:
+    got = {c.__name__: c.launches for c in counters}
+    for k, n in want.items():
+        if got[k] != n:
+            fail(f"{tag}: {k} launched {got[k]} times (want {n}); {got}")
+    return got
+
+
+def timed(torch, dev, fn):
+    """``(fn(), ms)`` on the host clock, the card synchronised on both
+    sides."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
+    """Phase 22 on one configuration of the smoke cell (``reg``'s path, at
+    ``shards`` shards): engine A checkpoints to a directory every second
+    superstep of K = 8 (asynchronous saves), engine B and a plain-version
+    engine take the same input without interruption.  After four
+    supersteps A is deleted and ``restore_engine`` rebuilds it from the
+    newest checkpoint; the restored engine, B and the plain engine take one
+    eager round and two supersteps more.  Gates: the restored engine
+    equals B at the resume point and at the end (every snapshot array and
+    every sink bitwise) and equals the plain engine; the kernels launched
+    once per round of the three kernel engines.  Then one leaf of the
+    newest checkpoint is truncated: ``load`` of it must raise
+    ``CheckpointCorrupt`` and ``restore_engine`` must fall back to the one
+    before, equal to B's snapshot there.  Times (host clock, card
+    synchronised): ``snapshot()`` and its bytes (and the registry
+    mirror's share of it, ``Registry.to_snapshot``), ``save_sync``, the
+    blocking part of ``save_async`` (the snapshot and the call),
+    ``restore_engine`` from disk, and the first round after the restore
+    beside the same round of B."""
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import create_engine, restore_engine
+    K, before, after = 8, 4, 2
+    B = reg.cfg.batch
+    kw = dict(DURABLE, superstep=K, checkpoint_every=2)
+    if shards > 1:
+        kw.update(n_shards=shards, exchange_slots=0)
+    e_a = create_engine(copy_registry(reg, **kw), device=dev)
+    e_b = create_engine(copy_registry(reg, **kw), device=dev)
+    e_p = plain_engine(copy_registry(reg, **kw), dev)
+    path = e_b._path
+    tag = f"kill-resume {path} D={shards}"
+    SCRATCH.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=SCRATCH))
+    try:
+        mgr = e_a.checkpoint_to(str(root), keep=3)
+        rng = np.random.default_rng(SEED + 22)
+        for c in counters:
+            c.launches = 0
+        at = {}
+        for s in range(before):
+            post_random([e_a, e_b, e_p], sources, rng, K * B, 100 * s)
+            compare_sinks(f"{tag} superstep {s}",
+                          step_all([e_a, e_b, e_p], K))
+            at[e_b._steps_done] = e_b.snapshot()
+        mgr.wait()
+        steps = ckpt.all_steps(str(root))
+        if steps != [2, 4]:
+            fail(f"{tag}: checkpoints at steps {steps}, want [2, 4]")
+        del e_a, mgr                        # the crash
+        e_r, ms_restore = timed(torch, dev, lambda: restore_engine(
+            str(root), device=dev))
+        if e_r._steps_done != before or e_r._path != path:
+            fail(f"{tag}: restored step {e_r._steps_done}, path {e_r._path}")
+        compare_snapshots(f"{tag} restored vs survivor", e_r, e_b)
+        post_random([e_r, e_b, e_p], sources, rng, B, 100 * before)
+        firsts = [timed(torch, dev, e.round) for e in (e_r, e_b, e_p)]
+        compare_sinks(f"{tag} first round", [[x] for x, _ in firsts])
+        for s in range(before, before + after):
+            post_random([e_r, e_b, e_p], sources, rng, K * B, 100 * s + 50)
+            compare_sinks(f"{tag} superstep {s}",
+                          step_all([e_r, e_b, e_p], K))
+        compare_snapshots(f"{tag} restored vs survivor", e_r, e_b)
+        compare_snapshots(f"{tag} restored vs plain", e_r, e_p)
+        rounds = before * K + 2 * (1 + after * K) + before * K
+        launches = check_launches(tag, counters,
+                                  want_launches(rounds, shards, path))
+        # a torn newest checkpoint: the one before it is restored
+        leaf = root / f"step_{steps[-1]:08d}" / "state_values.npy"
+        leaf.write_bytes(leaf.read_bytes()[:-16])
+        try:
+            ckpt.load(str(root), steps[-1])
+            fail(f"{tag}: a truncated leaf loaded without CheckpointCorrupt")
+        except ckpt.CheckpointCorrupt:
+            pass
+        e_f = restore_engine(str(root), device=dev)
+        if e_f._steps_done != steps[-2]:
+            fail(f"{tag}: the fallback restored step {e_f._steps_done}")
+        (xf, mf), (xb, mb) = e_f.snapshot(), at[steps[-2]]
+        for k in xb:
+            compare(f"{tag} fallback {k}", torch.from_numpy(xf[k]),
+                    torch.from_numpy(xb[k]))
+        if mf != mb or sorted(xf) != sorted(xb):
+            fail(f"{tag}: the fallback's meta or keys differ")
+        del e_f
+        # times on the survivor
+        snaps = [timed(torch, dev, e_b.snapshot) for _ in range(5)]
+        mirror = [timed(torch, dev, e_b.registry.to_snapshot)[1]
+                  for _ in range(5)]
+        arrays, meta = snaps[-1][0]
+        n_bytes = sum(a.nbytes for a in arrays.values())
+        times = ckpt.CheckpointManager(str(root / "times"), keep=1)
+        ms_sync = [timed(torch, dev, lambda: times.save_sync(
+            10 + i, arrays, extra=meta))[1] for i in range(3)]
+        ms_async = []
+        for i in range(3):
+            ms_async.append(timed(torch, dev, lambda: times.save_async(
+                20 + i, *e_b.snapshot()))[1])
+            times.wait()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    med = statistics.median
+    c = e_r.counters()
+    print(f"[{tag}] {reg.n_active} streams, retention 16, DLQ 512: "
+          f"checkpoints at supersteps {steps} of K={K} (asynchronous), "
+          f"engine deleted after {before}; restore_engine == survivor "
+          f"(every snapshot array) at the resume point and after 1 round "
+          f"and {after} supersteps more, == the plain engine, every sink "
+          f"bitwise; truncated newest leaf: CheckpointCorrupt, fallback to "
+          f"step {steps[-2]} == the survivor's snapshot there; launches "
+          f"{launches}; processed={c['processed']} emitted={c['emitted']} "
+          f"dropped_overflow={c['dropped_overflow']} "
+          f"DLQ fill {e_r.state.dlq_fill.sum().item()}", flush=True)
+    print(f"[durability times {path} D={shards}] {smi}: snapshot() "
+          f"{med(ms for _, ms in snaps)} ms for {n_bytes} bytes (the "
+          f"registry mirror alone {med(mirror)} ms); "
+          f"save_sync {med(ms_sync)} ms; save_async blocking (snapshot and "
+          f"call) {med(ms_async)} ms; restore_engine from disk {ms_restore} "
+          f"ms; first round after the restore {firsts[0][1]} ms (the "
+          f"survivor's same round {firsts[1][1]} ms, plain {firsts[2][1]} "
+          f"ms)", flush=True)
+
+
+def phase_redelivery(torch, dev, reg, sources, shards, counters):
+    """Phase 23 at ``shards`` shards: one script on a kernel engine and a
+    plain-version engine (``reg``'s fused path, retention 16, DLQ 512),
+    every snapshot array and sink bitwise after each step: six rounds of
+    history; a late joiner admitted with ``replay=True`` on the source
+    with the most retained history (its program swapped to read both
+    inputs); SUs shed by a quota of 1 on one tenant, drained and
+    redelivered with the quota lifted; a queued composite revoked and its
+    purged SUs redelivered, which must be refused, spooled again with
+    their reason and counted in ``redeliver_rejected``; eight rounds after
+    each step.  The kernels must have launched once per round."""
+    import numpy as np
+    from repro_torch.core import create_engine
+    kw = dict(DURABLE)
+    if shards > 1:
+        kw.update(n_shards=shards, exchange_slots=0)
+    tag = f"redeliver D={shards}"
+    e_k = create_engine(copy_registry(reg, **kw), device=dev)
+    e_p = plain_engine(copy_registry(reg, **kw), dev)
+    engines = (e_k, e_p)
+    if e_k._path != "fused":
+        fail(f"{tag}: the engine took the {e_k._path} path")
+    rng = np.random.default_rng(SEED + 23)
+    B = reg.cfg.batch
+    n_rounds, log = 0, []
+    for c in counters:
+        c.launches = 0
+
+    def rounds(n, what):
+        nonlocal n_rounds
+        compare_sinks(f"{tag} {what}",
+                      [[e.round() for _ in range(n)] for e in engines])
+        n_rounds += n
+
+    def both(name, fn, n_inner=0):
+        nonlocal n_rounds
+        out = [fn(e) for e in engines]
+        n_rounds += n_inner
+        if out[0] != out[1]:
+            fail(f"{tag} {name}: kernels {out[0]}, plain {out[1]}")
+        compare_snapshots(f"{tag} {name}", e_k, e_p)
+        log.append(f"{name} {out[0]}")
+        return out[0]
+
+    for r in range(6):                      # history in the retention rings
+        post_random(engines, sources, rng, B, 10 * r)
+        rounds(1, f"history {r}")
+    count = e_k._by_sid(e_k.state.ret_count)
+    h = max(sources, key=lambda s: (int(count[s.sid]), -s.sid))
+    other = next(s for s in sources if s.sid != h.sid)
+
+    def replay(e):
+        r = e.registry
+        late = e.admit_composite(r.tenants[0], "late", CHANNELS,
+                                 [r.streams[other.sid]],
+                                 {ch: f"in0.{ch}" for ch in CHANNELS})
+        n0 = e.counters()["replayed"]
+        ok = e.admit_subscription(late, r.streams[h.sid], replay=True)
+        e.swap_program(late, {ch: f"in0.{ch} + in1.{ch} * 2.0"
+                              for ch in CHANNELS})
+        return ok, e.counters()["replayed"] - n0
+
+    ok, replayed = both("replay", replay)
+    if not ok or replayed != min(int(count[h.sid]), DURABLE["retention_slots"]):
+        fail(f"{tag}: replayed {replayed} of {int(count[h.sid])} retained")
+    rounds(8, "after the replay")
+    tid = sources[0].tenant
+    mine = [s for s in sources if s.tenant == tid][:B]
+
+    def quota(e):
+        e.dead_letters()                    # an empty spool to start from
+        e.set_quota(tid, 1)
+        for i, s in enumerate(mine):
+            e.post(s.sid, [float(i), 1.0, 2.0, 3.0], 5000 + i)
+        e.round()
+        letters = e.dead_letters(clear=False)
+        shed = sum(lt.reason == "quota" for lt in letters)
+        e.set_quota(tid, 0)
+        return shed, len(letters), e.redeliver()
+
+    shed, n_letters, n = both("quota", quota, 1)
+    if not (shed > 0 and n == n_letters):
+        fail(f"{tag}: {shed} shed, {n} of {n_letters} letters redelivered")
+    rounds(8, "after the quota redelivery")
+    post_random(engines, sources, rng, B, 6000)
+    rounds(1, "before the revoke")
+    queued = set(e_k.state.q_sid[e_k.state.q_valid].tolist())
+    comps = sorted(s.sid for s in e_k.registry.streams
+                   if s is not None and s.composite and s.sid in queued)
+    if not comps:
+        fail(f"{tag}: no composite queued to revoke")
+    x = comps[0]
+
+    def revoke(e):
+        e.dead_letters()
+        n0 = e.counters()["redeliver_rejected"]
+        e.revoke_stream(e.registry.streams[x])
+        purged = sum(lt.sid == x for lt in e.dead_letters(clear=False))
+        n = e.redeliver()
+        kept = [lt.reason for lt in e.dead_letters(clear=False)
+                if lt.sid == x]
+        return purged, n, e.counters()["redeliver_rejected"] - n0, kept
+
+    purged, n, rejected, kept = both("revoke", revoke)
+    if not (purged > 0 and rejected == purged == len(kept)
+            and set(kept) == {"revoked"} and n == 0):
+        fail(f"{tag}: revoked sid {x}: {purged} purged, {n} redelivered, "
+             f"{rejected} rejected, kept {kept}")
+    rounds(8, "after the refused redelivery")
+    launches = check_launches(tag, counters,
+                              want_launches(n_rounds, shards, "fused"))
+    c = e_k.counters()
+    print(f"[{tag}] kernels bitwise equal to the plain versions after each "
+          f"step (every snapshot array and sink): {'; '.join(log)}; "
+          f"{n_rounds} rounds, launches {launches}; replayed={c['replayed']} "
+          f"redeliver_rejected={c['redeliver_rejected']} "
+          f"dropped_quota={c['dropped_quota']} "
+          f"dropped_overflow={c['dropped_overflow']}", flush=True)
+
+
+def autoscale_run(dev, reg, sources, use_kernel):
+    """``tests/test_elastic.py``'s autoscaler feed at the smoke width: an
+    ``Autoscaler(min_shards=1, max_shards=4, up=0.25, down=0.05,
+    patience=1, cooldown=0)`` observing every superstep of K = 2; a burst
+    of 2 x batch posts a superstep for up to 12 supersteps (until 4
+    shards), then supersteps with no posts until the engine is back at 1
+    shard with an empty queue (at most 96)."""
+    import numpy as np
+    from repro_torch.core import create_engine
+    from repro_torch.launch import Autoscaler
+    eng = create_engine(copy_registry(reg, **DURABLE, exchange_slots=0,
+                                      superstep=2),
+                        device=dev, use_kernel=use_kernel)
+    sc = Autoscaler(eng, min_shards=1, max_shards=4, up=0.25, down=0.05,
+                    patience=1, cooldown=0)
+    rng = np.random.default_rng(SEED + 24)
+    B = eng.cfg.batch
+    for w in range(12):
+        post_random([eng], sources, rng, 2 * B, 100 * w)
+        eng.superstep(2)
+        sc.observe()
+        if eng.cfg.n_shards == 4:
+            break
+    for _ in range(96):
+        eng.superstep(2)
+        sc.observe()
+        if eng.cfg.n_shards == 1 and sc.occupancy() == 0.0:
+            break
+    return eng, sc
+
+
+def phase_elastic(torch, dev, reg, sources, counters, smi):
+    """Phase 24: the resize chain 1 -> 2 -> 4 -> 2 -> 1 on a kernel engine
+    and a plain-version engine (``reg``'s fused path, retention 16, DLQ
+    512, K = 8), a superstep of 8 x batch posts before each hop so that
+    the queue is loaded when it moves.  Gates at every hop: the resized
+    engine equals ``restore_engine(snapshot, n_shards=M)`` taken just
+    before (every snapshot array), and the plain engine resized alike;
+    after one more superstep on the same input all three still agree
+    (every sink); the kernels launched once per round of the two kernel
+    engines at the new shard count (so ``exchange_compact`` and
+    ``apply_programs`` at D = 2).  Then :func:`autoscale_run` through the
+    kernels and through the plain versions: at least one scale-up and one
+    scale-down, the same scale events and the same final engine."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import create_engine, restore_engine
+    K = 8
+    kw = dict(DURABLE, exchange_slots=0, superstep=K)
+    e = create_engine(copy_registry(reg, **kw), device=dev)
+    e_p = plain_engine(copy_registry(reg, **kw), dev)
+    rng = np.random.default_rng(SEED + 24)
+    B = reg.cfg.batch
+    hops, ms_hops, seen = [], [], {1: e._fns}
+    for i, n_to in enumerate((2, 4, 2, 1)):
+        n_from = e.cfg.n_shards
+        post_random([e, e_p], sources, rng, K * B, 1000 * i)
+        compare_sinks(f"elastic before ->{n_to}", step_all([e, e_p], K))
+        occ = int(e.state.q_valid.sum())
+        if occ == 0:
+            fail(f"elastic: the queue is empty before the resize to {n_to}")
+        snap = e.snapshot()
+        _, ms = timed(torch, dev, lambda: e.resize(n_to))
+        e_p.resize(n_to)
+        if n_to in seen and e._fns is not seen[n_to]:
+            fail(f"elastic: the return to {n_to} shards rebuilt its closures")
+        seen[n_to] = e._fns
+        oracle = restore_engine(snap, n_shards=n_to, device=dev)
+        compare_snapshots(f"elastic resize ->{n_to} vs restore", e, oracle)
+        compare_snapshots(f"elastic resize ->{n_to} kernels vs plain", e, e_p)
+        for c in counters:
+            c.launches = 0
+        post_random([e, oracle, e_p], sources, rng, K * B, 1000 * i + 500)
+        compare_sinks(f"elastic at {n_to}", step_all([e, oracle, e_p], K))
+        launches = check_launches(f"elastic at {n_to} shards", counters,
+                                  want_launches(2 * K, n_to, "fused"))
+        compare_snapshots(f"elastic at {n_to} vs restore", e, oracle)
+        compare_snapshots(f"elastic at {n_to} kernels vs plain", e, e_p)
+        hops.append(f"{n_from}->{n_to} {ms} ms (queue {occ}; launches "
+                    f"{ {k: n for k, n in launches.items() if n} })")
+        ms_hops.append(f"{n_from}->{n_to} {ms}")
+        del oracle
+    runs = [autoscale_run(dev, reg, sources, u) for u in (None, False)]
+    (e_k, s_k), (e_pl, s_pl) = runs
+    ev = [dataclasses.asdict(x) for x in s_k.events]
+    if ev != [dataclasses.asdict(x) for x in s_pl.events]:
+        fail(f"autoscaler: kernel events {ev}, plain "
+             f"{[dataclasses.asdict(x) for x in s_pl.events]}")
+    if not (any(x.to_shards > x.from_shards for x in s_k.events)
+            and any(x.to_shards < x.from_shards for x in s_k.events)
+            and e_k.cfg.n_shards == 1):
+        fail(f"autoscaler: events {ev}, ending at {e_k.cfg.n_shards} shards")
+    compare_snapshots("autoscaler kernels vs plain", e_k, e_pl)
+    print(f"[elastic] resize chain 1->2->4->2->1 with a loaded queue at "
+          f"each hop: each resize == restore_engine(snapshot, n_shards=M), "
+          f"kernels == plain (every snapshot array and sink), the return to "
+          f"a layout reuses its closures; {'; '.join(hops)}", flush=True)
+    print(f"[elastic times] {smi}: resize ms per hop "
+          f"{'; '.join(ms_hops)}", flush=True)
+    print(f"[autoscale] {s_k._steps} observations, events "
+          f"{[(x.step, x.from_shards, x.to_shards, x.reason) for x in s_k.events]}"
+          f" equal through the kernels and the plain versions, final engine "
+          f"equal (every snapshot array); processed="
+          f"{e_k.counters()['processed']} "
+          f"dropped_overflow={e_k.counters()['dropped_overflow']}",
+          flush=True)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3419,6 +3892,21 @@ def main() -> None:
     # ---- 21. timings of mlstm_chunkwise and the sLSTM scan -------------------
     rows.append(time_mlstm(torch, mlstm_inputs_at, max(mlstm_err, x_err),
                            x_launches, mlstm_build, fmad))
+
+    # ---- 22. kill and resume from checkpoints ---------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for r, shards in ((reg_fused, 1), (reg, 1), (reg_fused, SHARDS)):
+        phase_kill_resume(torch, dev, r, sources, shards, counters, smi)
+
+    # ---- 23. replay and redelivery, kernels against plain ---------------
+    for shards in (1, SHARDS):
+        phase_redelivery(torch, dev, reg_fused, sources, shards, counters)
+
+    # ---- 24. the resize chain and the autoscaler -------------------------
+    phase_elastic(torch, dev, reg_fused, sources, counters, smi)
+    print(f"[durability] phases 22-24 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,8 @@ from repro_torch.core.engine import (DLQ_REASONS, DeadLetter, DeviceTables,
                                      EngineState, IngestBatch, IngestRing,
                                      SinkBatch, SinkSpool, StreamEngine,
                                      create_engine, engine_from_snapshot,
-                                     init_state, make_step, make_superstep)
+                                     init_state, make_step, make_superstep,
+                                     restore_engine)
 from repro_torch.core.graph import PipelineGraph
 from repro_torch.core.registry import Registry, Stream, Tenant
 
@@ -14,6 +15,7 @@ __all__ = [
     "EngineConfig", "Registry", "Stream", "Tenant", "StreamEngine",
     "DeviceTables", "EngineState", "IngestBatch", "SinkBatch",
     "IngestRing", "SinkSpool", "init_state", "make_step", "make_superstep",
-    "create_engine", "engine_from_snapshot", "DeadLetter", "DLQ_REASONS",
+    "create_engine", "engine_from_snapshot", "restore_engine", "DeadLetter",
+    "DLQ_REASONS",
     "PipelineGraph",
 ]

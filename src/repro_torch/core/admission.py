@@ -28,14 +28,23 @@ captured CUDA graph of the round needs.
     unquarantine_stream  lift a quarantine and reset the breaker window
     set_breaker          the engine-wide breaker knobs [W, F, ceiling]
     reset_windows        clear a stream's window ring buffer
+    requeue / requeue_shard
+                         enqueue SUs directly, bypassing phase 0 — the
+                         retention-replay / dead-letter-redelivery edit
+    respool / respool_shard
+                         re-append refused dead letters to the spool and
+                         count them in ``redeliver_rejected``
+    clear_dead_letters   reset the dead-letter spool cursor after a drain
 
 Rows are addressed by an index tuple: ``(sid,)`` on a single device,
 ``(shard, local)`` against the sharded tables, whose per-tenant tables
 and breaker knobs carry one copy per shard (``...``-indexed edits write
 every copy).  These are host operations between rounds: they may read
 a few values back (the ``ok`` of an edge edit, the rows a purge hits).
-The durability plane's ``requeue``/``respool``/``clear_dead_letters``
-edits come with that plane (ROADMAP.md, queue 1, item 1: durability).
+The durability plane's edits (``requeue``, ``respool`` and their
+``_shard`` forms) run the engine's own enqueue and spool functions on the
+state (one shard's views of it for the ``_shard`` forms) and copy what
+changed back into the same tensors.
 """
 from __future__ import annotations
 
@@ -45,8 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (DLQ_POISONED, DLQ_REVOKED, FAIR_SCALE,
-                                     INT_MIN, QUOTA_MAX, DeviceTables,
-                                     EngineState)
+                                     I32, INT_MIN, QUOTA_MAX, DeviceTables,
+                                     EngineState, _enqueue, dlq_append)
 
 # fill value of each *per-stream* table field for a vacated row (the
 # images Registry.build_tables produces for rows no stream occupies); the
@@ -268,6 +277,87 @@ def set_breaker(tables: DeviceTables, vals) -> None:
     """Overwrite the breaker knobs ``[window, threshold, amp_ceiling]`` in
     every shard's copy."""
     tables.breaker.copy_(_host(np.asarray(vals, np.int32)))
+
+
+def _shard_view(state: EngineState, shard: int) -> EngineState:
+    """Shard ``shard``'s slice of a sharded state, as views."""
+    return EngineState(*(
+        {k: v[shard] for k, v in x.items()} if isinstance(x, dict)
+        else x[shard] for x in state))
+
+
+def _write_back(state: EngineState, new: EngineState) -> None:
+    """Copy every leaf of ``new`` that is not ``state``'s own tensor into
+    ``state``'s tensor, in place (the stats dict is left to the caller)."""
+    for f in EngineState._fields:
+        if f != "stats" and getattr(new, f) is not getattr(state, f):
+            getattr(state, f).copy_(getattr(new, f))
+
+
+def _requeue_body(loc: EngineState, sid, vals, ts, valid, tenant,
+                  its) -> None:
+    """Shared body of :func:`requeue` / :func:`requeue_shard` on one
+    (shard's) state."""
+    new, dropped = _enqueue(loc, sid, vals, ts, valid, tenant, its=its)
+    _write_back(loc, new)
+    n = valid.sum(dtype=I32) - dropped
+    loc.stats["dropped_overflow"].add_(dropped)
+    loc.stats["replayed"].add_(n)
+    loc.stats["queued_in"].add_(n)
+
+
+def requeue(state: EngineState, sid, vals, ts, valid, tenant, its=None
+            ) -> None:
+    """Enqueue SUs *directly* into the pending queue — the durability
+    plane's replay / dead-letter-redelivery edit.  Bypasses phase 0 (and
+    its monotone-timestamp gate), so retained historical SUs enter even
+    though the stream has since emitted newer data; downstream, Listing-2
+    consistency still discards them at subscribers that already processed
+    them.  Queue overflow drops are counted, charged to ``tenant`` and
+    dead-lettered like any enqueue; SUs that land count in ``replayed``
+    and ``queued_in``.  ``its`` carries each SU's original ingest stamp.
+    The free-slot search is the staged round's (sorted free slots)."""
+    _requeue_body(state, sid, vals, ts, valid, tenant, its)
+
+
+def requeue_shard(state: EngineState, shard: int, sid, vals, ts, valid,
+                  tenant, its=None) -> None:
+    """:func:`requeue` into shard ``shard``'s slice of a sharded state; the
+    caller routes each item to its owner shard (``q_sid`` holds global
+    sids, so the payloads travel unchanged)."""
+    _requeue_body(_shard_view(state, shard), sid, vals, ts, valid, tenant,
+                  its)
+
+
+def _respool_body(loc: EngineState, sid, vals, ts, reason, tenant, its,
+                  valid) -> None:
+    """Shared body of :func:`respool` / :func:`respool_shard`."""
+    loc.stats["redeliver_rejected"].add_(valid.sum(dtype=I32))
+    _write_back(loc, dlq_append(loc, sid, vals, ts, tenant, reason, valid,
+                                its=its))
+
+
+def respool(state: EngineState, sid, vals, ts, reason, tenant, its,
+            valid) -> None:
+    """Re-append refused dead letters behind the spool cursor with their
+    original per-letter ``reason`` codes and ingest stamps, counting them
+    in ``stats["redeliver_rejected"]``: redelivery against revoked or
+    quarantined rows leaves the letters *in the spool*.  Saturates like
+    any DLQ append (letters past the spool are lost but counted)."""
+    _respool_body(state, sid, vals, ts, reason, tenant, its, valid)
+
+
+def respool_shard(state: EngineState, shard: int, sid, vals, ts, reason,
+                  tenant, its, valid) -> None:
+    """:func:`respool` into shard ``shard``'s spool of a sharded state."""
+    _respool_body(_shard_view(state, shard), sid, vals, ts, reason, tenant,
+                  its, valid)
+
+
+def clear_dead_letters(state: EngineState) -> None:
+    """Reset the dead-letter spool cursor (every shard's) after a host
+    drain; the payloads need no scrub, ``dlq_fill`` gates every read."""
+    state.dlq_fill.zero_()
 
 
 def reset_windows(store, sid):

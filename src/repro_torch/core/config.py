@@ -5,10 +5,8 @@ Everything here fixes the shape of a tensor the engine round reads or
 writes (the analogue of the STORM topology's worker/executor counts).
 Tenants' pipelines live entirely in device tensors sized by these
 capacities, so creating, rewiring or destroying a pipeline is a table
-edit and never changes a shape.  The sharded and superstep planes are
-ported; fields of the planes this package has not ported yet (durability
-checkpoints and retention replay) are kept so a configuration
-round-trips unchanged between the two packages.
+edit and never changes a shape.  Every field is the JAX package's, so a
+configuration round-trips unchanged between the two packages.
 """
 from __future__ import annotations
 
@@ -43,7 +41,7 @@ class EngineConfig:
     superstep: int = 1          # rounds fused per compiled scan (1 = off)
     sink_spool_slots: int = 0   # per-superstep sink spool rows (0 -> K*sink)
 
-    # ---- durability & replay plane (engine DLQ) ------
+    # ---- durability & replay plane (repro_torch.checkpoint, engine DLQ) --
     checkpoint_every: int = 0   # async snapshot every N supersteps (0 = off)
     retention_slots: int = 0    # retained emissions per stream (0 = off)
     dlq_slots: int = 0          # dead-letter spool rows (0 = off)

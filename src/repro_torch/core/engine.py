@@ -24,6 +24,7 @@ land in a pad row that is sliced off.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -168,6 +169,12 @@ DLQ_REASONS = ("overflow", "revoked", "spool", "quota", "poisoned")
 # tensor helpers: XLA's gather/scatter index semantics
 # --------------------------------------------------------------------------
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of its own: on the CPU ``.numpy()`` would
+    share the tensor's storage, which in-place edits change later."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def _tensor(a, device) -> torch.Tensor:
     """A host array as a tensor of the same dtype on ``device`` (copied, so
     read-only numpy views are fine)."""
@@ -273,13 +280,14 @@ def init_state(cfg: EngineConfig, device) -> EngineState:
     )
 
 
-def dlq_append(state: EngineState, sid, vals, ts, tenant, reason: int, mask,
+def dlq_append(state: EngineState, sid, vals, ts, tenant, reason, mask,
                its=None) -> EngineState:
     """Spill the masked dropped SUs into the dead-letter spool behind
     ``dlq_fill``; letters beyond ``cfg.dlq_slots`` are lost (the
     ``dropped_*`` stats still count them), and with ``dlq_slots == 0``
-    this is a no-op.  ``tenant=None`` records the sentinel ``-1``;
-    ``its=None`` records stamp 0."""
+    this is a no-op.  ``reason`` is one ``DLQ_*`` code or a tensor of one
+    per item; ``tenant=None`` records the sentinel ``-1``; ``its=None``
+    records stamp 0."""
     D = state.dlq_sid.shape[0]
     if D == 0:
         return state
@@ -1046,8 +1054,10 @@ class StreamEngine:
         self.registry = registry
         self.use_kernel = use_kernel
         self._fanout_fn = fanout_fn
-        # per path: (round closure, {K: superstep closure})
-        self._fns: Dict[str, Tuple[Callable, Dict[int, Callable]]] = {}
+        # per layout (see _layout_key), per path: (round closure, {K:
+        # superstep closure}); kept across resize, so a return to a layout
+        # seen before reuses its closures
+        self._fn_cache: Dict[Tuple, Dict[str, Tuple[Callable, Dict]]] = {}
         self._init_layout(priority)
         self._pending: List[List] = []  # [sid, vals, ts, ring_slot|None, its]
         self.admission_rejected = 0
@@ -1060,6 +1070,7 @@ class StreamEngine:
         self._ring: Optional[IngestRing] = None
         self._ring_K = 0
         self._ring_free: List[int] = []
+        self._ckpt = None               # durability plane: see checkpoint_to
         self._refresh_fusable()
 
     def _init_layout(self, priority: Optional[np.ndarray]) -> None:
@@ -1068,6 +1079,16 @@ class StreamEngine:
         self.tables = DeviceTables.from_host(
             self.registry.build_tables(priority), self.device)
         self.state = init_state(self.cfg, self.device)
+        self._bind_fns()
+
+    def _layout_key(self) -> Tuple:
+        """What the round closures are shaped by (the sharded engine adds
+        its shard and row counts)."""
+        return ("single",)
+
+    def _bind_fns(self) -> None:
+        """Point ``_fns`` at the closure cache of the current layout."""
+        self._fns = self._fn_cache.setdefault(self._layout_key(), {})
 
     # -------------------------------------------------------------- ingest
     def post(self, stream, values: Sequence[float], ts: int,
@@ -1133,7 +1154,7 @@ class StreamEngine:
         self.state, sink = self._step(self._run_tables, self.state,
                                       self._take_ingest())
         self._rounds_done += 1
-        self._steps_done += 1
+        self._maybe_checkpoint()
         return sink
 
     def drain(self, max_rounds: int = 256) -> List[SinkBatch]:
@@ -1242,7 +1263,7 @@ class StreamEngine:
         self._last_base = self._rounds_done
         spool = self._run_superstep(K)
         self._rounds_done += K
-        self._steps_done += 1
+        self._maybe_checkpoint()
         return spool
 
     def _run_superstep(self, K: int) -> SinkSpool:
@@ -1403,11 +1424,12 @@ class StreamEngine:
         self._select_path()
 
     def _sync_admitted(self) -> None:
-        """Hook: the round's program table changed shape or storage (see
-        :meth:`_cut_programs`), or :meth:`_install_snapshot` rebound every
-        table and state tensor.  Every other edit is in place, so these
-        are the points where a captured round would be captured again;
-        nothing is captured yet."""
+        """Hook, called where the JAX package re-places the round's inputs:
+        the round's program table changed shape or storage (see
+        :meth:`_cut_programs`), :meth:`_install_snapshot` rebound every
+        table and state tensor, or the durability plane edited the queue
+        or the dead-letter spool (in place).  A captured round would be
+        captured again at the first two; nothing is captured yet."""
 
     # ----------------------------------------------------- tenant QoS plane
     @staticmethod
@@ -1534,20 +1556,21 @@ class StreamEngine:
     def admit_subscription(self, stream, new_input, *,
                            replay: bool = False) -> bool:
         """Add a subscription edge to a running composite.  Returns False
-        (counted) when in/out-degree capacity is exhausted.  ``replay``
-        (history from the retention ring) belongs to the durability
-        plane, not ported yet."""
-        if replay:
-            raise NotImplementedError(
-                "admit_subscription(replay=True) replays retained history, "
-                "which is the durability plane (ROADMAP.md, queue 1, item 1: "
-                "durability)")
+        (counted) when in/out-degree capacity is exhausted.  With
+        ``replay=True`` (and ``cfg.retention_slots > 0``), ``new_input``'s
+        retained emissions are re-enqueued oldest-first *before* live
+        data, so the late joiner catches up on history — at-least-once:
+        existing subscribers see the replayed SUs too but discard them as
+        stale (Listing-2 keep mask), while the joiner (never emitted)
+        processes all of them."""
         try:
             self.registry.subscribe(stream, new_input)
         except CapacityError:
             self.admission_rejected += 1
             return False
         self._admit_edge(stream.sid, new_input.sid)
+        if replay:
+            self._replay_retained(new_input)
         return True
 
     def revoke_subscription(self, stream, old_input) -> None:
@@ -1630,12 +1653,6 @@ class StreamEngine:
         sid = stream.sid if hasattr(stream, "sid") else int(stream)
         return bool(self.state.quarantined[self._table_row(sid)])
 
-    def redeliver(self, letters=None) -> int:
-        """Resubmit dead letters: the durability plane, not ported yet."""
-        raise NotImplementedError(
-            "redeliver() belongs to the durability plane (ROADMAP.md, "
-            "queue 1, item 1: durability)")
-
     # ------------------------------------------------------------- readback
     def value_of(self, stream) -> np.ndarray:
         """Last stored value of ``stream`` (host ``(channels,)`` f32)."""
@@ -1688,7 +1705,7 @@ class StreamEngine:
         """Drain the dead-letter spool: every SU dropped into a
         ``dropped_*`` counter since the last drain, in drop order
         (shard-major on the sharded engine); ``clear`` resets the spool
-        cursor (in place)."""
+        cursor (in place, through the admission plane)."""
         st = self.state
         if st.dlq_sid.shape[-1] == 0:
             return []
@@ -1703,23 +1720,137 @@ class StreamEngine:
                               int(tenant[s, i]), int(its[s, i]))
                    for s in range(fill.shape[0]) for i in range(int(fill[s]))]
         if clear and letters:
-            st.dlq_fill.zero_()
+            from repro_torch.core import admission
+            admission.clear_dead_letters(self.state)
+            self._sync_admitted()
         return letters
+
+    def redeliver(self, letters: Optional[List[DeadLetter]] = None) -> int:
+        """Resubmit dead letters (default: drain and clear the spool now).
+        Quota-shed SUs were refused *before* phase 0 stored them, so they
+        re-enter through normal ingest (a still-exhausted quota sheds them
+        again); every other class was stored when it dropped, so it
+        re-enqueues through the requeue edit, bypassing the phase-0 stale
+        gate so historical timestamps survive.  Letters whose stream is no
+        longer admittable — revoked *or* still quarantined — are refused:
+        they go back into the spool (the respool edit, reasons and stamps
+        kept) and count in ``stats["redeliver_rejected"]``.  Re-enqueues
+        that overflow the queue drop (and dead-letter) again.  Returns the
+        number submitted."""
+        if letters is None:
+            letters = self.dead_letters(clear=True)
+        qmask = self.fault_counters()["quarantined"]
+        live, rejected = [], []
+        for lt in letters:
+            registered = (0 <= lt.sid < len(self.registry.streams)
+                          and self.registry.streams[lt.sid] is not None)
+            if registered and not bool(qmask[lt.sid]):
+                live.append(lt)
+            else:
+                rejected.append(lt)
+        for lt in live:
+            if lt.reason == "quota":
+                self.post(lt.sid, lt.vals, lt.ts, its=lt.its)
+        self._requeue_batch([(lt.sid, lt.vals, lt.ts, lt.tenant, lt.its)
+                             for lt in live if lt.reason != "quota"])
+        self._respool_rejected(rejected)
+        return len(live)
+
+    def _edit_width(self) -> int:
+        """Pad width of one requeue/respool edit: every chunk has it."""
+        return max(self.cfg.retention_slots, self.cfg.dlq_slots, 1)
+
+    def _respool_rejected(self, letters: List[DeadLetter]) -> None:
+        """Put refused dead letters back in the spool (original reason and
+        stamps kept) and count them: one padded edit per chunk."""
+        W, C = self._edit_width(), self.cfg.channels
+        for ofs in range(0, len(letters), W):
+            chunk = letters[ofs:ofs + W]
+            sid = np.zeros((W,), np.int32)
+            vals = np.zeros((W, C), np.float32)
+            ts = np.zeros((W,), np.int32)
+            reason = np.zeros((W,), np.int32)
+            tenant = np.zeros((W,), np.int32)
+            its = np.zeros((W,), np.int32)
+            valid = np.zeros((W,), bool)
+            for i, lt in enumerate(chunk):
+                sid[i], vals[i], ts[i] = lt.sid, lt.vals, lt.ts
+                reason[i] = DLQ_REASONS.index(lt.reason)
+                tenant[i], its[i], valid[i] = lt.tenant, lt.its, True
+            self._apply_respool(sid, vals, ts, reason, tenant, its, valid)
+
+    def _apply_respool(self, sid, vals, ts, reason, tenant, its,
+                       valid) -> None:
+        """Hook: one padded respool edit (the sharded engine routes each
+        letter to its owner shard)."""
+        from repro_torch.core import admission
+        admission.respool(self.state, *(_tensor(a, self.device) for a in (
+            sid, vals, ts, reason, tenant, its, valid)))
+        self._sync_admitted()
+
+    def _replay_retained(self, src) -> int:
+        """Re-enqueue ``src``'s retained emissions oldest-first (the replay
+        half of ``admit_subscription(..., replay=True)``), each with its
+        original ingest stamp."""
+        Rr = self.cfg.retention_slots
+        sid = src.sid if hasattr(src, "sid") else int(src)
+        if Rr == 0:
+            return 0
+        row = self._table_row(sid)
+        count = int(self.state.ret_count[row])
+        if count == 0:
+            return 0
+        vals, ts, r_its = (getattr(self.state, f)[row].cpu().numpy()
+                           for f in ("ret_vals", "ret_ts", "ret_its"))
+        tenant = self.registry.stream_of(sid).tenant
+        n = min(count, Rr)
+        slots = [(count - n + i) % Rr for i in range(n)]
+        return self._requeue_batch([(sid, vals[j], int(ts[j]), tenant,
+                                     int(r_its[j])) for j in slots])
+
+    def _requeue_batch(self, items: List[Tuple]) -> int:
+        """Ship ``(sid, vals, ts, tenant, its)`` items into the queue
+        through the requeue edit, in chunks of one pad width."""
+        W, C = self._edit_width(), self.cfg.channels
+        for ofs in range(0, len(items), W):
+            chunk = items[ofs:ofs + W]
+            sid = np.zeros((W,), np.int32)
+            vals = np.zeros((W, C), np.float32)
+            ts = np.zeros((W,), np.int32)
+            valid = np.zeros((W,), bool)
+            tenant = np.zeros((W,), np.int32)
+            its = np.zeros((W,), np.int32)
+            for i, (s, v, t, tn, stamp) in enumerate(chunk):
+                sid[i], vals[i], ts[i] = s, v, t
+                valid[i], tenant[i], its[i] = True, tn, stamp
+            self._apply_requeue(sid, vals, ts, valid, tenant, its)
+        return len(items)
+
+    def _apply_requeue(self, sid, vals, ts, valid, tenant, its) -> None:
+        """Hook: one padded requeue edit (the sharded engine routes each
+        item to its owner shard)."""
+        from repro_torch.core import admission
+        admission.requeue(self.state, *(_tensor(a, self.device) for a in (
+            sid, vals, ts, valid, tenant, its)))
+        self._sync_admitted()
 
     # ------------------------------------------------------------ snapshots
     def snapshot(self) -> Tuple[Dict[str, np.ndarray], dict]:
         """The full engine as ``(arrays, meta)`` — the keys and layout of
         the JAX package's ``StreamEngine.snapshot()``: device tables,
         engine state (stats included), the pending backlog, and a JSON-able
-        ``meta`` with the registry mirror and host counters."""
+        ``meta`` with the registry mirror and host counters.  The arrays
+        are host copies (later in-place edits do not reach them).  The
+        ingest ring is not captured: every unconsumed SU is also in the
+        host backlog, from which a restore re-stages."""
         arrays: Dict[str, np.ndarray] = {}
         for f in DeviceTables._fields:
-            arrays[f"tables/{f}"] = getattr(self.tables, f).cpu().numpy()
+            arrays[f"tables/{f}"] = _host_copy(getattr(self.tables, f))
         for f in EngineState._fields:
             if f != "stats":
-                arrays[f"state/{f}"] = getattr(self.state, f).cpu().numpy()
+                arrays[f"state/{f}"] = _host_copy(getattr(self.state, f))
         for k in STAT_KEYS:
-            arrays[f"state/stats/{k}"] = self.state.stats[k].cpu().numpy()
+            arrays[f"state/stats/{k}"] = _host_copy(self.state.stats[k])
         C = self.cfg.channels
         p = self._pending
         arrays["pending/sid"] = np.array([e[0] for e in p], np.int32)
@@ -1737,18 +1868,36 @@ class StreamEngine:
     def _install_snapshot(self, arrays: Dict[str, np.ndarray],
                           meta: dict) -> None:
         """Overwrite this engine's tables, state and backlog with a
-        snapshot's."""
+        snapshot's.  Snapshots from before the fault plane take the
+        breaker knobs from the config and zero fault leaves and stats
+        (nothing quarantined), and those from before the latency plane
+        zero ingest stamps — the JAX package's defaults."""
         dev = self.device
+        brk = arrays.get("tables/breaker")
+        if brk is None:
+            brk = np.array([self.cfg.fault_window, self.cfg.fault_threshold,
+                            self.cfg.fault_amp_ceiling], np.int32)
+            if arrays["tables/active"].ndim == 2:
+                brk = np.tile(brk[None], (arrays["tables/active"].shape[0], 1))
         self.tables = DeviceTables(**{
-            f: _tensor(arrays[f"tables/{f}"], dev)
+            f: _tensor(brk if f == "breaker" else arrays[f"tables/{f}"], dev)
             for f in DeviceTables._fields})
-        st = {f: _tensor(arrays[f"state/{f}"], dev)
+        row_shape = arrays["state/timestamps"].shape
+        fill = {"quarantined": np.zeros(row_shape, bool),
+                "fault_count": np.zeros(row_shape, np.int32),
+                "fault_epoch": np.zeros(row_shape, np.int32),
+                "fault_total": np.zeros(row_shape, np.int32),
+                "round_idx": np.zeros(np.shape(arrays["state/seq"]), np.int32)}
+        st = {f: _tensor(arrays[f"state/{f}"] if f"state/{f}" in arrays
+                         else fill[f], dev)
               for f in EngineState._fields if f != "stats"}
-        st["stats"] = {k: _tensor(arrays[f"state/stats/{k}"], dev)
+        stat0 = np.zeros_like(np.asarray(arrays["state/stats/ingested"]))
+        st["stats"] = {k: _tensor(arrays.get(f"state/stats/{k}", stat0), dev)
                        for k in STAT_KEYS}
         self.state = EngineState(**st)
-        p_sid, p_vals, p_ts, p_its = (arrays[f"pending/{k}"]
-                                      for k in ("sid", "vals", "ts", "its"))
+        p_sid, p_vals, p_ts = (arrays[f"pending/{k}"]
+                               for k in ("sid", "vals", "ts"))
+        p_its = arrays.get("pending/its", np.zeros_like(p_sid))
         # ring slots are per engine: restored SUs re-stage from here
         self._pending = [[int(p_sid[i]), np.array(p_vals[i], np.float32),
                           int(p_ts[i]), None, int(p_its[i])]
@@ -1758,8 +1907,78 @@ class StreamEngine:
         self._rounds_done = int(meta.get("rounds_done", 0))
         self._last_base = self._rounds_done
         self._ring, self._ring_K, self._ring_free = None, 0, []
+        self._bind_fns()
         self._refresh_fusable()
         self._sync_admitted()
+
+    def checkpoint_to(self, path: Optional[str], keep: int = 3):
+        """Attach a :class:`~repro_torch.checkpoint.ckpt.CheckpointManager`
+        at ``path``: every ``cfg.checkpoint_every``-th superstep boundary
+        (a round counts as a superstep of one) snapshots the engine and
+        writes it asynchronously, keeping the newest ``keep``
+        checkpoints.  Returns the manager (``wait()`` on it before reading
+        the directory; recover with :func:`restore_engine`).
+        ``path=None`` detaches the manager after awaiting any write in
+        flight."""
+        from repro_torch.checkpoint.ckpt import CheckpointManager
+        if path is None:
+            if self._ckpt is not None:
+                self._ckpt.wait()
+            self._ckpt = None
+            return None
+        self._ckpt = CheckpointManager(path, keep=keep)
+        return self._ckpt
+
+    def _maybe_checkpoint(self) -> None:
+        """Superstep-boundary hook, after the rounds were enqueued: count
+        the boundary and, when the cadence lands and a manager is
+        attached, snapshot (a device->host copy) and save in the
+        background."""
+        self._steps_done += 1
+        every = self.cfg.checkpoint_every
+        if self._ckpt is not None and every > 0 \
+                and self._steps_done % every == 0:
+            arrays, meta = self.snapshot()
+            self._ckpt.save_async(self._steps_done, arrays, extra=meta)
+
+    # ---------------------------------------------------------- elastic mesh
+    def resize(self, n_shards: int, *,
+               partition: Optional[str] = None) -> "StreamEngine":
+        """Live shard scale-out/in at a superstep boundary: re-shards the
+        engine *in place* to ``n_shards`` and returns ``self``, the object
+        morphing between :class:`StreamEngine` (``n_shards == 1``) and the
+        sharded engine, so every holder of the reference keeps a valid
+        engine.  The mechanism is the durability plane: a
+        :meth:`snapshot`, re-laid out by
+        :func:`~repro_torch.distributed.stream_sharding.reshard_snapshot`
+        (rows, retention rings, queues and dead letters move to their new
+        owner shards), then installed — so ``resize(M)`` equals
+        ``restore_engine(snapshot(), n_shards=M)``.  The registry object
+        (and every Stream handle it issued) survives; only its ``cfg``
+        moves.  A return to a layout seen before reuses its round
+        closures.  Token buckets restart, and scale-in can overflow the
+        smaller per-shard queues: those SUs are counted and
+        dead-lettered."""
+        n_shards = int(n_shards)
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if n_shards == self.cfg.n_shards and \
+                (partition is None or partition == self.cfg.partition):
+            return self
+        from repro_torch.distributed import stream_sharding as _sh
+        arrays, meta = _sh.reshard_snapshot(*self.snapshot(), n_shards,
+                                            partition=partition)
+        self.cfg = self.registry.cfg = EngineConfig(
+            **meta["registry"]["cfg"]).validate()
+        if n_shards > 1:
+            self.__class__ = _sh.ShardedStreamEngine
+        else:
+            self.__class__ = StreamEngine
+            for attr in ("plan", "gmap", "_occupancy", "_spare", "_holes",
+                         "_ring_dirty"):
+                self.__dict__.pop(attr, None)
+        self._install_snapshot(arrays, meta)
+        return self
 
 
 def create_engine(registry: Registry, *, device="cuda", **kw) -> StreamEngine:
@@ -1774,16 +1993,70 @@ def create_engine(registry: Registry, *, device="cuda", **kw) -> StreamEngine:
     return StreamEngine(registry, device=device, **kw)
 
 
-def engine_from_snapshot(arrays: Dict[str, np.ndarray], meta: dict, *,
-                         device="cuda", **kw) -> StreamEngine:
-    """Build an engine from a single-device ``(arrays, meta)`` snapshot —
-    this package's or the JAX package's ``StreamEngine.snapshot()`` (flat
-    numpy plus JSON meta carrying the registry mirror): tables, state,
-    stats and pending backlog are installed verbatim, so the continuation
-    is bit-identical."""
-    if meta.get("kind", "single") != "single":
-        raise NotImplementedError("only single-device snapshots are ported")
-    eng = create_engine(Registry.from_snapshot(meta["registry"]),
-                        device=device, **kw)
+def restore_engine(source, *, step: Optional[int] = None, device="cuda",
+                   fanout_fn: Callable = fanout_reference,
+                   n_shards: Optional[int] = None,
+                   partition: Optional[str] = None, **kw):
+    """Rebuild a running engine on ``device`` from a snapshot — the
+    recovery half of ``StreamEngine.snapshot()``, of this package or of
+    the JAX package.
+
+    ``source`` is a checkpoint directory, a
+    :class:`~repro_torch.checkpoint.ckpt.CheckpointManager`, or an
+    ``(arrays, meta)`` pair.  The registry mirror in ``meta`` rebuilds
+    the host control plane (with its exact :class:`EngineConfig`), the
+    snapshot's kind picks the engine class (single or sharded), and
+    tables, state and backlog are installed verbatim: the continuation is
+    bit-identical to the uninterrupted run.  Returns ``None`` when no
+    checkpoint exists yet (``step=None`` picks the newest *valid* one,
+    skipping a torn or corrupt newer one; an explicit ``step`` raises
+    :class:`~repro_torch.checkpoint.ckpt.CheckpointCorrupt` on damage).
+
+    ``n_shards``/``partition`` re-shard the snapshot before it is
+    installed (:func:`~repro_torch.distributed.stream_sharding.
+    reshard_snapshot`, the mapping ``StreamEngine.resize`` uses), so an
+    N-shard checkpoint restores into an M-shard engine.  ``**kw`` goes to
+    the engine (``use_kernel``)."""
+    if isinstance(source, tuple):
+        arrays, meta = source
+    else:
+        from repro_torch.checkpoint import ckpt as _ckpt
+        if isinstance(source, _ckpt.CheckpointManager):
+            if step is None:
+                step, arrays, meta = source.load_latest()
+            else:
+                source.wait()
+                arrays, meta = _ckpt.load(source.path, step)
+        elif step is None:
+            step, arrays, meta = _ckpt.load_latest_valid(os.fspath(source))
+        else:
+            arrays, meta = _ckpt.load(os.fspath(source), step)
+        if arrays is None:
+            return None
+    if n_shards is not None or partition is not None:
+        cfg0 = EngineConfig(**meta["registry"]["cfg"])
+        want = int(n_shards) if n_shards is not None else cfg0.n_shards
+        if want != cfg0.n_shards or \
+                (partition or cfg0.partition) != cfg0.partition:
+            from repro_torch.distributed.stream_sharding import \
+                reshard_snapshot
+            arrays, meta = reshard_snapshot(arrays, meta, want,
+                                            partition=partition)
+    registry = Registry.from_snapshot(meta["registry"])
+    if meta.get("kind") == "sharded":
+        from repro_torch.distributed.stream_sharding import \
+            ShardedStreamEngine
+        eng = ShardedStreamEngine(registry, device=device,
+                                  fanout_fn=fanout_fn, **kw)
+    else:
+        eng = StreamEngine(registry, device=device, fanout_fn=fanout_fn,
+                           **kw)
     eng._install_snapshot(arrays, meta)
     return eng
+
+
+def engine_from_snapshot(arrays: Dict[str, np.ndarray], meta: dict, *,
+                         device="cuda", **kw) -> StreamEngine:
+    """:func:`restore_engine` of an in-memory ``(arrays, meta)``
+    snapshot."""
+    return restore_engine((arrays, meta), device=device, **kw)

@@ -34,11 +34,16 @@ across the sending-shard axis.  The round is cut at those collectives:
 
 Inside each part a Python loop runs the single-device stage functions on
 each shard's views.  Live churn (admission placement, ``rebalance``)
-edits tables, state and the replicated lookup maps in place.
+edits tables, state and the replicated lookup maps in place.  A sharded
+snapshot adds the lookup maps and the placement plan to the
+single-device one; :func:`reshard_snapshot` re-lays any snapshot out for
+another shard count, which is how ``StreamEngine.resize`` and a
+cross-shard-count ``restore_engine`` move the plane (the elastic plane).
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -49,20 +54,15 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.engine import (
     BOOL, DLQ_OVERFLOW, DLQ_POISONED, DLQ_REVOKED, F32, I32, INT_MIN,
     STAT_KEYS, DeviceTables, EngineState, IngestBatch, IngestRing, SinkBatch,
-    SinkSpool, StreamEngine, _add_drop, _count, _inc, _init_spool, _pop,
-    _set_drop, _tensor, dlq_append, fanout_reference, fault_events,
+    SinkSpool, StreamEngine, _add_drop, _count, _host_copy, _inc,
+    _init_spool, _pop, _set_drop, _tensor, dlq_append, fanout_reference,
+    fault_events,
     fault_phase, ingest_phase, process_work_items, ring_grid, spool_round,
     store_and_emit, tenant_occupancy)
 from repro_torch.core.registry import EngineTables
 from repro_torch.kernels.round_fuse import ref as rf_ref
 from repro_torch.kernels.round_fuse.ops import apply_programs, exchange_compact
 from repro_torch.kernels.stream_dispatch.ops import by_sid_snapshot
-
-_DURABILITY = ("the durability plane (ROADMAP.md, queue 1, item 1: "
-               "durability)")
-_ELASTIC = ("the elastic plane (ROADMAP.md, queue 1, item 2: the elastic "
-            "plane)")
-
 
 # --------------------------------------------------------------------------
 # partitioner
@@ -223,10 +223,245 @@ def sharded_init_state(cfg: EngineConfig, plan: ShardPlan,
     )
 
 
-def reshard_snapshot(arrays, meta, n_shards: int, partition=None):
-    """Re-lay a snapshot out for another shard count: the elastic plane,
-    not ported yet."""
-    raise NotImplementedError(f"reshard_snapshot belongs to {_ELASTIC}")
+# table fields with one copy per shard (not row-indexed)
+_REPL_FIELDS = ("weight", "quota", "burst", "breaker")
+
+
+def reshard_snapshot(arrays, meta, n_shards: int,
+                     partition: Optional[str] = None):
+    """Re-lay an engine snapshot out for another shard count (or partition
+    scheme) — the migration core of the elastic plane, equal to the JAX
+    package's ``reshard_snapshot`` bit for bit.  Returns a new ``(arrays,
+    meta)`` pair installable at ``n_shards`` (``kind="sharded"`` above 1,
+    ``"single"`` at 1); the inputs are not changed.  Both
+    ``StreamEngine.resize`` and a cross-shard-count ``restore_engine``
+    route through here, which makes restore the oracle of resize.
+
+    Everything runs on host numpy at a superstep boundary:
+
+    * per-stream table rows and per-sid state (values, timestamps,
+      retention rings, fault counters) are gathered into by-sid order and
+      scattered again through a fresh :func:`plan_partition` /
+      :func:`shard_tables` layout, whose hole fills match inert rows;
+    * queued SUs are drained shard by shard in FIFO (``q_seq``) order and
+      re-enqueued on each sid's new owner shard; entries beyond a shard's
+      ``cfg.queue`` on scale-in are counted (``dropped_overflow``,
+      ``purged``, per tenant) and dead-lettered, never silently lost;
+    * dead letters re-spool on their sid's new owner (saturating at
+      ``cfg.dlq_slots`` per shard, like any spool write);
+    * per-tenant and stat totals are summed over the old shards and put on
+      shard 0 (readback sums shards); ``tenant_queued`` is recounted from
+      the moved queues; token buckets restart empty.
+    """
+    cfg = EngineConfig(**meta["registry"]["cfg"])
+    n_shards = int(n_shards)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    new_cfg = dataclasses.replace(
+        cfg, n_shards=n_shards,
+        partition=partition or cfg.partition).validate()
+    N, C, Q, T = cfg.n_streams, cfg.channels, cfg.queue, cfg.n_tenants
+    Rr, D = cfg.retention_slots, cfg.dlq_slots
+
+    # ---- the source as by-sid / flat host views ---------------------------
+    if meta.get("kind") == "sharded":
+        old_flat = np.asarray(arrays["plan/sid_to_flat"], np.int64)
+
+        def by_sid(x):
+            x = np.asarray(x)       # explicit leading dim: zero-size leaves
+            return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])[
+                old_flat]
+
+        def repl(x):                # one copy per shard: any is canonical
+            return np.asarray(x)[0]
+
+        def lead(x):
+            return np.asarray(x)
+
+        def tot(x):                 # totals live summed over the shards
+            x = np.asarray(x)
+            return np.array(x.sum(axis=0), x.dtype)
+    else:
+        def by_sid(x):
+            return np.asarray(x)
+
+        repl = by_sid
+
+        def lead(x):                # the single layout lacks the shard axis
+            return np.asarray(x)[None]
+
+        def tot(x):
+            return np.array(x)      # a copy: totals are changed below
+
+    def tab_leaf(f):
+        src = arrays.get(f"tables/{f}")
+        if src is None:     # a snapshot from before the fault plane
+            return np.array([cfg.fault_window, cfg.fault_threshold,
+                             cfg.fault_amp_ceiling], np.int32)
+        return (repl if f in _REPL_FIELDS else by_sid)(src)
+
+    tab = {f: tab_leaf(f) for f in DeviceTables._fields}
+    tenant_flat = tab["tenant"].astype(np.int64)
+    per_sid = {f: by_sid(arrays[f"state/{f}"])
+               for f in ("values", "timestamps",
+                         "ret_vals", "ret_ts", "ret_its", "ret_count")}
+    for f, dt in (("quarantined", bool), ("fault_count", np.int32),
+                  ("fault_epoch", np.int32), ("fault_total", np.int32)):
+        src = arrays.get(f"state/{f}")
+        per_sid[f] = by_sid(src) if src is not None else np.zeros((N,), dt)
+    r_idx = np.asarray(arrays.get("state/round_idx", 0))
+    round_idx = np.int32(r_idx.max() if r_idx.ndim else r_idx)
+
+    # queued SUs in shard-major FIFO order
+    q_sid, q_vals = lead(arrays["state/q_sid"]), lead(arrays["state/q_vals"])
+    q_ts, q_seq = lead(arrays["state/q_ts"]), lead(arrays["state/q_seq"])
+    q_its = lead(arrays["state/q_its"])
+    q_valid = lead(arrays["state/q_valid"])
+    entries = []
+    for s in range(q_sid.shape[0]):
+        idx = np.nonzero(q_valid[s])[0]
+        idx = idx[np.argsort(q_seq[s, idx], kind="stable")]
+        entries.extend((int(q_sid[s, i]), np.array(q_vals[s, i]),
+                        int(q_ts[s, i]), int(q_its[s, i])) for i in idx)
+
+    # dead letters in drop (shard-major, spool) order
+    d_sid, d_ts = lead(arrays["state/dlq_sid"]), lead(arrays["state/dlq_ts"])
+    d_vals = lead(arrays["state/dlq_vals"])
+    d_its = lead(arrays["state/dlq_its"])
+    d_reason = lead(arrays["state/dlq_reason"])
+    d_tenant = lead(arrays["state/dlq_tenant"])
+    d_fill = np.atleast_1d(np.asarray(arrays["state/dlq_fill"]))
+    letters = [(int(d_sid[s, i]), np.array(d_vals[s, i]), int(d_ts[s, i]),
+                int(d_its[s, i]), int(d_reason[s, i]), int(d_tenant[s, i]))
+               for s in range(d_sid.shape[0]) for i in range(int(d_fill[s]))]
+
+    totals = {k: tot(arrays[f"state/stats/{k}"]) for k in STAT_KEYS}
+    t_emitted = tot(arrays["state/tenant_emitted"])
+    t_drop_quota = tot(arrays["state/tenant_dropped_quota"])
+    t_drop_over = tot(arrays["state/tenant_dropped_overflow"])
+
+    # ---- rebuild at the target shard count --------------------------------
+    plan = plan_partition(new_cfg, tenant_flat)
+    sh_tab = shard_tables(EngineTables(**tab), plan)
+    S2, L2 = plan.n_shards, plan.n_local
+    flat = plan.sid_to_flat
+
+    def scatter(x, fill, dtype):
+        out = np.full((S2 * L2,) + x.shape[1:], fill, dtype)
+        out[flat] = x
+        return out.reshape((S2, L2) + x.shape[1:])
+
+    row_fill = {"values": (0, np.float32), "timestamps": (INT_MIN, np.int32),
+                "ret_vals": (0, np.float32), "ret_ts": (0, np.int32),
+                "ret_its": (0, np.int32), "ret_count": (0, np.int32),
+                "quarantined": (False, bool), "fault_count": (0, np.int32),
+                "fault_epoch": (0, np.int32), "fault_total": (0, np.int32)}
+    rows = {f: scatter(per_sid[f], *fd) for f, fd in row_fill.items()}
+
+    nq_sid = np.zeros((S2, Q), np.int32)
+    nq_vals = np.zeros((S2, Q, C), np.float32)
+    nq_ts = np.zeros((S2, Q), np.int32)
+    nq_its = np.zeros((S2, Q), np.int32)
+    nq_seq = np.zeros((S2, Q), np.int32)
+    nq_valid = np.zeros((S2, Q), bool)
+    fill = np.zeros((S2,), np.int64)
+    t_queued = np.zeros((S2, T), np.int32)
+    for sid, vals, ts, its in entries:
+        sid_c = min(max(sid, 0), N - 1)
+        s = int(plan.sid_to_shard[sid_c])
+        tn = min(max(int(tenant_flat[sid_c]), 0), T - 1)
+        k = int(fill[s])
+        if k < Q:
+            nq_sid[s, k], nq_vals[s, k], nq_ts[s, k] = sid, vals, ts
+            nq_its[s, k] = its
+            nq_seq[s, k], nq_valid[s, k] = k, True
+            fill[s] = k + 1
+            t_queued[s, tn] += 1
+        else:
+            # scale-in put more SUs on this shard than its queue holds:
+            # counted and dead-lettered, like any overflow
+            totals["dropped_overflow"] += 1
+            totals["purged"] += 1
+            t_drop_over[tn] += 1
+            letters.append((sid, np.asarray(vals, np.float32), ts, its,
+                            DLQ_OVERFLOW, tn))
+
+    nd_sid = np.zeros((S2, D), np.int32)
+    nd_vals = np.zeros((S2, D, C), np.float32)
+    nd_ts = np.zeros((S2, D), np.int32)
+    nd_its = np.zeros((S2, D), np.int32)
+    nd_reason = np.zeros((S2, D), np.int32)
+    nd_tenant = np.zeros((S2, D), np.int32)
+    nd_fill = np.zeros((S2,), np.int32)
+    if D > 0:
+        for sid, vals, ts, its, reason, tn in letters:
+            s = int(plan.sid_to_shard[min(max(sid, 0), N - 1)])
+            k = int(nd_fill[s])
+            if k < D:
+                nd_sid[s, k], nd_vals[s, k], nd_ts[s, k] = sid, vals, ts
+                nd_its[s, k] = its
+                nd_reason[s, k], nd_tenant[s, k] = reason, tn
+                nd_fill[s] = k + 1
+
+    def place0(v):           # totals ride on shard 0; readback sums shards
+        out = np.zeros((S2,) + v.shape, v.dtype)
+        out[0] = v
+        return out
+
+    out = {f"tables/{f}": np.asarray(getattr(sh_tab, f))
+           for f in DeviceTables._fields}
+    out.update({
+        "state/values": rows["values"],
+        "state/timestamps": rows["timestamps"],
+        "state/q_sid": nq_sid, "state/q_vals": nq_vals,
+        "state/q_ts": nq_ts, "state/q_its": nq_its, "state/q_seq": nq_seq,
+        "state/q_valid": nq_valid,
+        "state/seq": fill.astype(np.int32),
+        "state/tenant_emitted": place0(t_emitted),
+        "state/tokens": np.zeros((S2, T), np.int32),
+        "state/tenant_queued": t_queued,
+        "state/tenant_dropped_quota": place0(t_drop_quota),
+        "state/tenant_dropped_overflow": place0(t_drop_over),
+        "state/ret_vals": rows["ret_vals"], "state/ret_ts": rows["ret_ts"],
+        "state/ret_its": rows["ret_its"],
+        "state/ret_count": rows["ret_count"],
+        "state/quarantined": rows["quarantined"],
+        "state/fault_count": rows["fault_count"],
+        "state/fault_epoch": rows["fault_epoch"],
+        "state/fault_total": rows["fault_total"],
+        # every shard counts rounds alike, so moved fault windows stay
+        # anchored
+        "state/round_idx": np.full((S2,), round_idx, np.int32),
+        "state/dlq_sid": nd_sid, "state/dlq_vals": nd_vals,
+        "state/dlq_ts": nd_ts, "state/dlq_its": nd_its,
+        "state/dlq_reason": nd_reason,
+        "state/dlq_tenant": nd_tenant, "state/dlq_fill": nd_fill,
+    })
+    for k in STAT_KEYS:
+        out[f"state/stats/{k}"] = place0(totals[k].reshape(()))
+    if n_shards == 1:
+        out = {k: v[0] for k, v in out.items()}
+    else:
+        out["gmap/sid_to_shard"] = plan.sid_to_shard.copy()
+        out["gmap/sid_to_local"] = plan.sid_to_local.copy()
+        out["gmap/sid_to_flat"] = plan.sid_to_flat.copy()
+        out["gmap/priority"] = tab["priority"].astype(np.int32)
+        out.update(_plan_arrays(plan))
+    for k in ("pending/sid", "pending/vals", "pending/ts", "pending/its"):
+        out[k] = np.array(arrays[k])
+
+    new_meta = dict(meta)
+    new_meta["registry"] = dict(meta["registry"])
+    new_meta["registry"]["cfg"] = dataclasses.asdict(new_cfg)
+    new_meta["kind"] = "sharded" if n_shards > 1 else "single"
+    return out, new_meta
+
+
+def _plan_arrays(plan: ShardPlan) -> dict:
+    """A plan's maps as the ``plan/*`` arrays of a sharded snapshot."""
+    return {f"plan/{f}": getattr(plan, f).copy()
+            for f in ("sid_to_shard", "sid_to_local", "sid_to_flat",
+                      "local_to_sid")}
 
 
 # --------------------------------------------------------------------------
@@ -504,15 +739,14 @@ class ShardedStreamEngine(StreamEngine):
         self.tables = DeviceTables.from_host(host_tables, self.device)
         self.gmap = GlobalMaps.build(priority, self.plan, self.device)
         self.state = sharded_init_state(self.cfg, self.plan, self.device)
-        self._fn_cache = {}
-        self._fns = self._fn_cache.setdefault(self._layout_key(self.plan), {})
+        self._bind_fns()
         self._ring_dirty = False   # placement changed: re-stage everything
         self._init_slots()
 
-    def _layout_key(self, plan: ShardPlan):
+    def _layout_key(self):
         """Cache key of the round closures: what they are shaped by (the
         shard and row counts; plan *content* is data in ``gmap``)."""
-        return ("sharded", plan.n_shards, plan.n_local)
+        return ("sharded", self.plan.n_shards, self.plan.n_local)
 
     def _make_step(self, fused: bool):
         return make_sharded_step(self.cfg, self.plan.n_shards,
@@ -582,7 +816,7 @@ class ShardedStreamEngine(StreamEngine):
         self.state, sink = self._step(self._run_tables, self.gmap,
                                       self.state, self._take_ingest())
         self._rounds_done += 1
-        self._steps_done += 1
+        self._maybe_checkpoint()
         return SinkBatch(*(x.reshape((-1,) + tuple(x.shape[2:]))
                            for x in sink))
 
@@ -858,8 +1092,7 @@ class ShardedStreamEngine(StreamEngine):
         self.gmap = GlobalMaps(*(_assign(a, b.numpy())
                                  for a, b in zip(self.gmap, fresh)))
         if not same_shape:       # the round closures are shaped by n_local
-            self._fns = self._fn_cache.setdefault(
-                self._layout_key(new_plan), {})
+            self._bind_fns()
         self._refresh_fusable()
         self._ring_dirty = True         # plan rebuilt: void the ring cache
         self._init_slots()
@@ -873,24 +1106,70 @@ class ShardedStreamEngine(StreamEngine):
         sid = stream.sid if hasattr(stream, "sid") else int(stream)
         return int(self.state.timestamps[self._table_row(sid)])
 
-    # ------------------------------------------------- not ported yet
+    # ------------------------------------------------- durability plane
     def snapshot(self):
-        """Sharded snapshots belong to the durability plane."""
-        raise NotImplementedError(f"sharded snapshot() belongs to "
-                                  f"{_DURABILITY}")
+        """The single-device snapshot's arrays (state leaves with their
+        leading shard axis) plus the lookup maps (``gmap/*``) and the
+        placement plan (``plan/*``), under ``kind="sharded"``."""
+        arrays, meta = StreamEngine.snapshot(self)
+        for f in GlobalMaps._fields:
+            arrays[f"gmap/{f}"] = _host_copy(getattr(self.gmap, f))
+        arrays.update(_plan_arrays(self.plan))
+        meta["kind"] = "sharded"
+        return arrays, meta
 
     def _install_snapshot(self, arrays, meta) -> None:
-        raise NotImplementedError(f"sharded restore belongs to {_DURABILITY}")
+        """Restore half of :meth:`snapshot`: the placement plan first (the
+        round closures are shaped by it: a new layout gets or reuses its
+        own), then the lookup maps, tables, state and backlog, then the
+        slot books from the restored registry.  The snapshot's shard count
+        must be the config's: ``reshard_snapshot`` it first otherwise."""
+        local_to_sid = np.array(arrays["plan/local_to_sid"], np.int32)
+        n_shards = int(local_to_sid.shape[0])
+        if n_shards != self.cfg.n_shards:
+            raise ValueError(
+                f"snapshot carries {n_shards} shards but cfg.n_shards="
+                f"{self.cfg.n_shards}; reshard_snapshot() it first (or "
+                f"restore_engine(..., n_shards=...))")
+        self.plan = ShardPlan(
+            n_shards=n_shards, n_local=int(local_to_sid.shape[1]),
+            sid_to_shard=np.array(arrays["plan/sid_to_shard"], np.int32),
+            sid_to_local=np.array(arrays["plan/sid_to_local"], np.int32),
+            sid_to_flat=np.array(arrays["plan/sid_to_flat"], np.int32),
+            local_to_sid=local_to_sid)
+        self.gmap = GlobalMaps(*(_tensor(arrays[f"gmap/{f}"], self.device)
+                                 for f in GlobalMaps._fields))
+        StreamEngine._install_snapshot(self, arrays, meta)
+        self._ring_dirty = True
+        self._init_slots()
 
-    def resize(self, n_shards: int, **kw):
-        """Live re-sharding belongs to the elastic plane."""
-        raise NotImplementedError(f"resize() belongs to {_ELASTIC}")
+    def _owner_edits(self, sid, valid):
+        """``(shard, mask)`` per shard owning a valid item, ascending."""
+        owner = self.plan.sid_to_shard[np.clip(sid, 0, self.cfg.n_streams - 1)]
+        return [(s, valid & (owner == s))
+                for s in sorted(set(owner[valid].tolist()))]
 
-    def _apply_requeue(self, *args) -> None:
-        raise NotImplementedError(f"requeue belongs to {_DURABILITY}")
+    def _apply_requeue(self, sid, vals, ts, valid, tenant, its) -> None:
+        """Route each padded requeue item to its owner shard: one
+        :func:`~repro_torch.core.admission.requeue_shard` edit per shard
+        touched."""
+        dev = self.device
+        args = [_tensor(a, dev) for a in (sid, vals, ts)]
+        for s, mask in self._owner_edits(sid, valid):
+            admission.requeue_shard(self.state, s, *args, _tensor(mask, dev),
+                                    _tensor(tenant, dev), _tensor(its, dev))
+        self._sync_admitted()
 
-    def _apply_respool(self, *args) -> None:
-        raise NotImplementedError(f"respool belongs to {_DURABILITY}")
+    def _apply_respool(self, sid, vals, ts, reason, tenant, its,
+                       valid) -> None:
+        """Route each refused dead letter back to its owner shard's spool:
+        one :func:`~repro_torch.core.admission.respool_shard` edit per
+        shard touched."""
+        dev = self.device
+        args = [_tensor(a, dev) for a in (sid, vals, ts, reason, tenant, its)]
+        for s, mask in self._owner_edits(sid, valid):
+            admission.respool_shard(self.state, s, *args, _tensor(mask, dev))
+        self._sync_admitted()
 
 
 def _assign(dst: torch.Tensor, src) -> torch.Tensor:

@@ -15,7 +15,7 @@ latency records to each flow's ``sink_sid`` before the tracker sees them
 (:func:`sink_records`).
 
 Not ported yet, and raising ``NotImplementedError``: PRED flows and their
-serving bridge (``wire_pred``), and the autoscaler (``drive(scaler=...)``).
+serving bridge (``wire_pred``).
 """
 from __future__ import annotations
 
@@ -132,12 +132,10 @@ def drive(suite: IoTSuite, K: int = 4, *, scaler=None,
     runs one K-round superstep, folds terminal-sink latency records into
     the SLO tracker and pushes STATS emissions into the window store;
     four more supersteps let in-flight SUs reach their sinks.  Each
-    superstep's spool is read back once.  Returns ``{"records": n,
-    "slo_report": ..., "aggregates": ...}`` (aggregates as host arrays)."""
-    if scaler is not None:
-        raise NotImplementedError(
-            "the autoscaler belongs to the elastic plane, which is not "
-            "ported yet (ROADMAP.md, queue 1, item 2: the elastic plane)")
+    superstep's spool is read back once.  ``scaler`` (a
+    :class:`repro_torch.launch.autoscale.Autoscaler`) observes every
+    trace superstep's boundary.  Returns ``{"records": n, "slo_report":
+    ..., "aggregates": ...}`` (aggregates as host arrays)."""
     eng = suite.engine
     sink_sids = suite.sink_sids
     if stats_sids is None:
@@ -153,6 +151,8 @@ def drive(suite: IoTSuite, K: int = 4, *, scaler=None,
             suite.stats.push_sinks([
                 s._replace(valid=np.isin(s.sid, stats_sids) & s.valid)
                 for s in sinks])
+        if scaler is not None:
+            scaler.observe()
     # let in-flight SUs reach their sinks
     for _ in range(4):
         n_obs += _observe(suite, eng.spool_sinks(eng.superstep(K)),

@@ -365,18 +365,33 @@ def test_swap_program_equivalence_vs_rebuilt_registry():
 
 
 def test_planes_that_wait_raise():
-    """Replay on subscription and redelivery belong to the durability
-    plane, which is not ported yet; both raise and name it."""
-    reg = P.Registry.with_capacity(_cfg(P))
-    t = reg.create_tenant("t")
-    a = reg.create_stream(t, "a", ["v"])
-    c = reg.create_composite(t, "c", ["v"], [a], {"v": "in0.v"})
-    b = reg.create_stream(t, "b", ["v"])
-    e = _engine(P, reg)
-    with pytest.raises(NotImplementedError, match="durability plane"):
-        e.admit_subscription(c, b, replay=True)
-    with pytest.raises(NotImplementedError, match="durability plane"):
-        e.redeliver()
+    """Replay on subscription and redelivery raised until the durability
+    plane was ported: a subscription with ``replay=True`` re-enqueues the
+    new input's retained history (the newest ``retention_slots`` SUs) in
+    place, and the continuation equals ``repro``'s; ``redeliver()`` of an
+    empty spool submits nothing."""
+    engines = []
+    for mod in (J, P):
+        reg = mod.Registry.with_capacity(_cfg(mod))
+        t = reg.create_tenant("t")
+        a = reg.create_stream(t, "a", ["v"])
+        c = reg.create_composite(t, "c", ["v"], [a], {"v": "in0.v"})
+        b = reg.create_stream(t, "b", ["v"])
+        e = _engine(mod, reg)
+        e.post(a, [5.0], ts=1)
+        for i in range(3):
+            e.post(b, [float(i)], ts=i + 1)
+        e.drain()
+        before = _ptrs(e) if mod is P else None
+        assert e.admit_subscription(c, b, replay=True)
+        if mod is P:
+            assert _ptrs(e) == before
+            assert sorted(e.state.q_ts[e.state.q_valid].tolist()) == [2, 3]
+        assert e.counters()["replayed"] == 2
+        e.drain()
+        assert e.redeliver() == 0
+        engines.append(e)
+    assert_same(*engines, "replayed")
 
 
 def test_rewire_after_registry_edits_in_place():

@@ -274,11 +274,19 @@ def test_engine_defaults_to_cuda_and_refuses_the_cpu_silently():
 
 
 def test_unported_planes_raise():
+    """The serving bridge still raises; the sharded snapshot, which raised
+    until the durability plane was ported, restores into an engine of the
+    same layout."""
     from repro_torch.workloads import build_suite
     with pytest.raises(NotImplementedError, match="serving bridge"):
         build_suite(2, kinds=("pred",), device="cpu")
     sharded = P.Registry(P.EngineConfig(n_streams=4, batch=2, queue=4,
                                         n_shards=2))
-    with pytest.raises(NotImplementedError, match="durability"):
-        P.create_engine(sharded, device="cpu").snapshot()
+    eng = P.create_engine(sharded, device="cpu")
+    arrays, meta = eng.snapshot()
+    assert meta["kind"] == "sharded"
+    back = P.restore_engine((arrays, meta), device="cpu")
+    assert type(back) is type(eng) and back.plan.n_shards == 2
+    for k, v in back.snapshot()[0].items():
+        np.testing.assert_array_equal(v, arrays[k], err_msg=k)
     assert PE.RANK_LIM * PE.FAIR_SCALE <= np.iinfo(np.int32).max

@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1p3b",
               "repro_torch.kernels.mlstm_chunk.ref",
               "repro_torch.kernels.mlstm_chunk.ops",
-              "repro_torch.kernels.mlstm_chunk.kernel"):
+              "repro_torch.kernels.mlstm_chunk.kernel",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+              "repro_torch.launch", "repro_torch.launch.autoscale"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

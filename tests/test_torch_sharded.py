@@ -343,16 +343,25 @@ def test_tenant_rewire_remaps_state():
 
 
 def test_sharded_planes_that_wait_raise():
+    """The durability and elastic planes this test saw raise until they
+    were ported: the sharded snapshot carries the maps and the plan,
+    ``reshard_snapshot`` re-lays it out for 4 shards, and ``resize(4)``
+    installs exactly that layout in place."""
     reg = P.Registry(P.EngineConfig(n_streams=8, batch=4, queue=8,
                                     n_shards=2))
     eng = P.create_engine(reg, device="cpu")
-    with pytest.raises(NotImplementedError, match="durability plane"):
-        eng.snapshot()
-    with pytest.raises(NotImplementedError, match="elastic plane"):
-        eng.resize(4)
+    arrays, meta = eng.snapshot()
+    assert meta["kind"] == "sharded"
+    assert arrays["plan/local_to_sid"].shape == (2, 4)
+    assert arrays["gmap/sid_to_flat"].shape == (8,)
     from repro_torch.distributed import stream_sharding as SS
-    with pytest.raises(NotImplementedError, match="elastic plane"):
-        SS.reshard_snapshot({}, {}, 4)
+    out, meta4 = SS.reshard_snapshot(arrays, meta, 4)
+    assert meta4["registry"]["cfg"]["n_shards"] == 4
+    assert eng.resize(4) is eng and eng.plan.n_shards == 4
+    now = eng.snapshot()[0]
+    assert sorted(now) == sorted(out)
+    for k in out:
+        np.testing.assert_array_equal(now[k], out[k], err_msg=k)
 
 
 def test_sharded_placement_and_occupancy():
