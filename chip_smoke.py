@@ -219,6 +219,22 @@ Phases, each printed on its own line:
     ``Autoscaler(min_shards=1, max_shards=4)`` on a burst and an idle
     drain, through the kernels and through the plain versions: a
     scale-up and a scale-down, the same events, the same final engine.
+25. The chaos drill (``repro_torch.launch``) at 1 shard fused and at 4
+    shards fused with ``fanout_fn=make_fanout()``: the cell of phase 22
+    with the breaker armed and an island of four streams of tenant 0
+    that nothing else reads.  A ``Supervisor`` drives a kernel engine
+    through six supersteps of K = 8 under a seeded ``ChaosMonkey``:
+    poisoned payloads on the island's sources, a storm, a hostile
+    overflow swap, a torn newest checkpoint with a ``ShardKill``, and a
+    second kill.  It must recover both, restore on the card with its
+    fan-out and kernel choice, launch the round kernels once per round
+    of every superstep it ran (replays included), and equal an
+    undisturbed twin (every snapshot array; every sink of one superstep
+    more), which must equal its plain-version engine; the breaker alone
+    quarantines the island's composites; co-tenant emissions equal a
+    clean engine's (deficit 0).  Each incident's ``downtime_s`` (MTTR)
+    and the synchronised time of the step that recovered are printed
+    beside phase 22's ``restore_engine`` times.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -3488,6 +3504,7 @@ def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
           f"ms; first round after the restore {firsts[0][1]} ms (the "
           f"survivor's same round {firsts[1][1]} ms, plain {firsts[2][1]} "
           f"ms)", flush=True)
+    return ms_restore
 
 
 def phase_redelivery(torch, dev, reg, sources, shards, counters):
@@ -3718,6 +3735,256 @@ def phase_elastic(torch, dev, reg, sources, counters, smi):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 25: the chaos drill under the self-healing supervisor
+# --------------------------------------------------------------------------
+
+# the drill's schedule (checkpoints after supersteps 2, 4, ...): the
+# hostile swap at superstep 2, then the newest checkpoint (4) torn and a
+# kill at 4, which restores 2 and replays 2-4 (the swap included); a
+# second kill at 5 restores the 4 rewritten by that replay.  Short,
+# because the plain 4-shard engine takes ~0.7 s a round.  SUs posted to
+# the cell's sources each superstep:
+CHAOS_STEPS, CHAOS_TEAR, CHAOS_HOSTILE, CHAOS_KILLS = 6, 4, 2, (4, 5)
+CHAOS_RESTORED = [2, 4]
+CHAOS_POSTS = 16
+
+
+def chaos_registry(reg, shards):
+    """The drill's registry: ``reg`` with retention 16, a spool of 512,
+    K = 8, a checkpoint every second superstep and the breaker armed (2
+    faults in 8 rounds trip), plus an island of tenant 0 that no other
+    stream reads: sources x0 and x1, and composites xc (``in0 * 2 +
+    in1``) and xh (``in0 - in1``, the hostile swap's target).  Returns
+    the registry, the island's sids and the per-sid pop priority: the
+    island is served after every other stream (priority 1), so that its
+    extra SUs (the doubled poison posts, the storm) take no pop slot from
+    a co-tenant and the deficit gate reads fault isolation alone, not the
+    QoS plane's sharing of a loaded queue."""
+    import numpy as np
+    kw = dict(DURABLE, superstep=8, checkpoint_every=2, fault_window=8,
+              fault_threshold=2)
+    if shards > 1:
+        kw.update(n_shards=shards, exchange_slots=0)
+    r = copy_registry(reg, **kw)
+    t = r.tenants[0]
+    x0 = r.create_stream(t, "chaos_x0", CHANNELS)
+    x1 = r.create_stream(t, "chaos_x1", CHANNELS)
+    xc = r.create_composite(t, "chaos_xc", CHANNELS, [x0, x1],
+                            {ch: f"in0.{ch} * 2.0 + in1.{ch}"
+                             for ch in CHANNELS})
+    xh = r.create_composite(t, "chaos_xh", CHANNELS, [x0, x1],
+                            {ch: f"in0.{ch} - in1.{ch}" for ch in CHANNELS})
+    island = (x0.sid, x1.sid, xc.sid, xh.sid)
+    priority = np.zeros((r.cfg.n_streams,), np.int32)
+    priority[list(island)] = 1
+    return r, island, priority
+
+
+def chaos_feed(sources, island, monkey, poison=True):
+    """The drill's feed, a pure function of the step (the supervisor's
+    replay calls it again): ``CHAOS_POSTS`` SUs to random sources of the
+    cell, then one SU on each island source.  With ``poison``, the
+    monkey's poison steps post two poisoned payloads of the scheduled kind
+    to each island source instead (two rounds running, so that the
+    breaker's 2 faults in 8 rounds trip), its storm steps add a storm of 16 SUs
+    over them, and its hostile step swaps xh's program for the overflow
+    one; without, the island takes plain SUs only (the clean engine).  The
+    draws come from a generator seeded by the step."""
+    import numpy as np
+    from repro_torch.launch import (inject_hostile_program,
+                                    inject_ingest_storm,
+                                    inject_payload_corruption)
+    x0, x1, _, xh = island
+
+    def feed(e, step):
+        rng = np.random.default_rng([SEED, 25, step])
+        ts = 1000 * step
+        post_random([e], sources, rng, CHAOS_POSTS, ts)
+        kinds = {ev.kind: ev.detail for ev in monkey.events_at(step)}
+        vals = rng.standard_normal((2, len(CHANNELS))).astype(np.float32)
+        if poison and "poison" in kinds:
+            for dt in (100, 101):           # two rounds: the breaker trips
+                for sid in (x0, x1):
+                    inject_payload_corruption(e, sid, ts + dt, rng,
+                                              kinds["poison"])
+        else:
+            for sid, v in zip((x0, x1), vals):
+                e.post(sid, v.tolist(), ts + 100)
+        if poison and "storm" in kinds:
+            inject_ingest_storm(e, [x0, x1], ts + 102, rng, n=16)
+        if poison and "hostile" in kinds:
+            s = e.registry.streams
+            inject_hostile_program(e, s[xh], [s[x0], s[x1]], rng)
+    return feed
+
+
+def phase_chaos(torch, dev, reg, sources, shards, counters, smi,
+                ms_restores):
+    """Phase 25 at ``shards`` shards (``reg``'s fused path; at 4 shards
+    every engine fans out through ``make_fanout()``): a ``Supervisor``
+    drives a kernel engine through ``CHAOS_STEPS`` supersteps of K = 8
+    under a seeded ``ChaosMonkey``: poisoned payloads on the island's
+    sources, a storm, the hostile overflow swap, a torn newest checkpoint
+    with a ``ShardKill``, and a second kill.  Beside it an undisturbed
+    twin and its plain-version engine take the same feed (sinks compared
+    every superstep), and a clean engine the feed without the island's
+    injections.  Gates: both incidents recovered (the first past the torn
+    checkpoint); the restored engine on the card with the fan-out and
+    kernel choice it had; the kernels launched once per round of every
+    superstep the supervised engines ran, restore and replay included (at
+    4 shards ``stream_dispatch`` once per shard and round); recovered ==
+    twin == plain (every snapshot array), and the recovered engine's
+    sinks == the twin's over one superstep more; the island's composites, and only they, quarantined by the
+    breaker, not by escalation; after a drain, the co-tenants' emissions
+    in the twin equal the clean engine's (deficit 0).  Prints each
+    incident's ``downtime_s`` (MTTR, host clock) and the synchronised
+    host time of the step that recovered, beside phase 22's
+    ``restore_engine`` times of this run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import create_engine
+    from repro_torch.kernels.stream_dispatch.ops import make_fanout
+    from repro_torch.launch import (ChaosMonkey, ShardKill, Supervisor,
+                                    corrupt_checkpoint)
+    K = 8
+    tag = f"chaos D={shards}"
+    base, island, priority = chaos_registry(reg, shards)
+    x0, x1, xc, xh = island
+
+    def engine(use_kernel=None):
+        fan = ({} if shards == 1
+               else {"fanout_fn": make_fanout(use_kernel=use_kernel)})
+        return create_engine(copy_registry(base), device=dev,
+                             priority=priority, use_kernel=use_kernel, **fan)
+
+    t0 = time.perf_counter()
+    e_s, e_t, e_p, e_c = engine(), engine(), engine(False), engine()
+    parts = {"engines": time.perf_counter() - t0}
+    monkey = ChaosMonkey(SEED + 25, CHAOS_STEPS, p_poison=0.5, p_storm=0.25,
+                         kill_steps=CHAOS_KILLS, tear_steps=(CHAOS_TEAR,),
+                         hostile_steps=(CHAOS_HOSTILE,))
+    kinds = [(ev.step, ev.kind, ev.detail) for ev in monkey.events]
+    if not {"poison", "storm"} <= {k for _, k, _ in kinds}:
+        fail(f"{tag}: the schedule {kinds} has no poison or no storm")
+    feed = chaos_feed(sources, island, monkey)
+    SCRATCH.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_", dir=SCRATCH))
+
+    def chaos(e, step):
+        evs = {ev.kind for ev in monkey.events_at(step)}
+        if "tear" in evs:
+            e._ckpt.wait()
+            if corrupt_checkpoint(str(root), monkey.rng,
+                                  mode="truncate") is None:
+                fail(f"{tag}: no checkpoint to tear at step {step}")
+        if "kill" in evs:
+            e._ckpt.wait()
+            raise ShardKill(f"chaos drill kill @{step}")
+
+    try:
+        t0 = time.perf_counter()
+        sup = Supervisor(e_s, str(root), feed=feed, chaos=chaos, K=K)
+        for c in counters:
+            c.launches = 0
+        ms_steps, ms_recover = [], {}
+        for step in range(CHAOS_STEPS):
+            inc, ms = timed(torch, dev, lambda: sup.step(step))
+            if inc is None:
+                ms_steps.append(ms)
+            else:
+                ms_recover[step] = ms
+        e_r = sup.engine
+        e_r.checkpoint_to(None)             # awaits the last save
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parts["supervised"] = time.perf_counter() - t0
+    incs = sup.incidents
+    n_super = CHAOS_STEPS - len(incs) + sum(i.replayed_steps for i in incs)
+    want = want_launches(n_super * K, shards, "fused")
+    if shards > 1:
+        want["stream_dispatch_call"] = shards * n_super * K
+    launches = check_launches(f"{tag} supervised", counters, want)
+    if [(i.kind, i.step) for i in incs] != [("crash", s) for s in CHAOS_KILLS]:
+        fail(f"{tag}: incidents {incs}")
+    if [i.restored_step for i in incs] != CHAOS_RESTORED:
+        fail(f"{tag}: restored steps {[i.restored_step for i in incs]}")
+    if e_r is e_s or e_r.device != e_s.device or \
+            e_r._fanout_fn is not e_s._fanout_fn or \
+            e_r.use_kernel is not None or e_r._path != "fused":
+        fail(f"{tag}: the restored engine runs on {e_r.device} with "
+             f"use_kernel={e_r.use_kernel}, path {e_r._path}")
+    del e_s
+    # the undisturbed twin and its plain engine, and the clean engine
+    t0 = time.perf_counter()
+    clean = chaos_feed(sources, island, monkey, poison=False)
+    escalated = {i.step: i.escalated for i in incs}
+    for step in range(CHAOS_STEPS):
+        feed(e_t, step)
+        feed(e_p, step)
+        clean(e_c, step)
+        compare_sinks(f"{tag} twin vs plain, superstep {step}",
+                      step_all([e_t, e_p], K))
+        e_c.superstep(K)
+        for sid in escalated.get(step, ()):
+            e_t.quarantine(sid)
+            e_p.quarantine(sid)
+    compare_snapshots(f"{tag} recovered vs twin", e_r, e_t)
+    compare_snapshots(f"{tag} twin vs plain", e_t, e_p)
+    del e_p
+    step = CHAOS_STEPS                      # one superstep more: the sinks
+    for e in (e_r, e_t):
+        feed(e, step)
+    compare_sinks(f"{tag} after the drill", step_all([e_r, e_t], K))
+    compare_snapshots(f"{tag} recovered vs twin, after", e_r, e_t)
+    clean(e_c, step)
+    e_c.superstep(K)
+    fc = e_r.fault_counters()
+    quarantined = sorted(int(s) for s in np.nonzero(fc["quarantined"])[0])
+    if quarantined != sorted((xc, xh)) or any(i.escalated for i in incs):
+        fail(f"{tag}: quarantined {quarantined}, escalated "
+             f"{[i.escalated for i in incs]}; the island is {island}")
+    parts["twin, plain, clean"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # drain the twin and the clean engine, then count co-tenant emissions
+    for n_drain in range(1, 17):
+        for e in (e_t, e_c):
+            e.superstep(K)
+        if all(not e._pending and int(e.state.q_valid.sum()) == 0
+               for e in (e_t, e_c)):
+            break
+    else:
+        fail(f"{tag}: the twin and the clean engine did not drain")
+    tid = base.tenants[0].tid
+    co = np.arange(base.cfg.n_tenants) != tid
+    em_t = e_t.tenant_counters()["emitted"][co]
+    em_c = e_c.tenant_counters()["emitted"][co]
+    deficit = int(np.maximum(em_c - em_t, 0).sum())
+    if deficit or not np.array_equal(em_t, em_c):
+        fail(f"{tag}: co-tenant emissions {em_t.tolist()} in the twin, "
+             f"{em_c.tolist()} clean (deficit {deficit})")
+    parts["drain"] = time.perf_counter() - t0
+    c = e_r.counters()
+    print(f"[{tag}] schedule {kinds}; incidents "
+          f"{[(i.step, i.restored_step, i.replayed_steps, i.blamed) for i in incs]}"
+          f" (step, restored step, replayed, blamed); recovered == twin == "
+          f"plain (every snapshot array; the twin's sinks == plain's every "
+          f"superstep, the recovered engine's == the twin's one more); "
+          f"launches across the restores {launches} for {n_super} "
+          f"supersteps; quarantined by the breaker {quarantined} (island "
+          f"{island}); co-tenant emissions {int(em_t.sum())} == clean, "
+          f"deficit 0 after {n_drain} drain supersteps; "
+          f"dropped_poisoned={c['dropped_poisoned']} "
+          f"dropped_overflow={c['dropped_overflow']}", flush=True)
+    print(f"[chaos times D={shards}] {smi}: MTTR (downtime_s, host clock) "
+          f"{[i.downtime_s * 1e3 for i in incs]} ms; the recovering step "
+          f"synchronised {ms_recover} ms; a step without incident "
+          f"{sorted(ms_steps)[len(ms_steps) // 2]} ms (median); phase 22's "
+          f"restore_engine from disk {ms_restores} ms; the phase's parts "
+          f"(s): {parts}", flush=True)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3896,8 +4163,10 @@ def main() -> None:
     # ---- 22. kill and resume from checkpoints ---------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for r, shards in ((reg_fused, 1), (reg, 1), (reg_fused, SHARDS)):
-        phase_kill_resume(torch, dev, r, sources, shards, counters, smi)
+    ms_restores = [phase_kill_resume(torch, dev, r, sources, shards,
+                                     counters, smi)
+                   for r, shards in ((reg_fused, 1), (reg, 1),
+                                     (reg_fused, SHARDS))]
 
     # ---- 23. replay and redelivery, kernels against plain ---------------
     for shards in (1, SHARDS):
@@ -3906,6 +4175,14 @@ def main() -> None:
     # ---- 24. the resize chain and the autoscaler -------------------------
     phase_elastic(torch, dev, reg_fused, sources, counters, smi)
     print(f"[durability] phases 22-24 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- 25. the chaos drill under the supervisor -------------------------
+    t0 = time.perf_counter()
+    for shards in (1, SHARDS):
+        phase_chaos(torch, dev, reg_fused, sources, shards, counters, smi,
+                    ms_restores)
+    print(f"[chaos] phase 25 took {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)

@@ -898,3 +898,74 @@ def test_xlstm_smoke_prefill_launches_the_kernel_per_mlstm_layer(dev):
     assert n_mlstm == 7
     assert mlstm_chunkwise_call.launches == LAUNCHES_PER_CALL * n_mlstm
     assert torch.isfinite(logits).all()
+
+
+# ------------------------------------------------------------ fault tooling
+def test_supervised_drill_on_the_card_equals_the_cpu(dev, tmp_path):
+    """A short supervised drill on the card at 1 shard (the fused round's
+    kernel): poison payloads, a hostile overflow swap, a torn newest
+    checkpoint with a ``ShardKill``.  The restore stays on the card, the
+    kernel launches once per round of every superstep run (replay
+    included), and the recovered engine equals an undisturbed twin that
+    took the same feed on the CPU, every snapshot array bitwise."""
+    from repro_torch.launch import (ShardKill, Supervisor,
+                                    corrupt_checkpoint,
+                                    inject_hostile_program,
+                                    inject_payload_corruption)
+    K, n_steps, kill_at = 2, 8, 5
+
+    def engine(device):
+        cfg = EngineConfig(n_streams=24, n_tenants=4, batch=8, queue=64,
+                           max_in=4, max_out=4, prog_len=24, n_temps=12,
+                           superstep=K, checkpoint_every=2,
+                           retention_slots=4, dlq_slots=16,
+                           fault_window=8, fault_threshold=2)
+        reg = Registry.with_capacity(cfg)
+        t, u = reg.create_tenant("t"), reg.create_tenant("u")
+        a, b = (reg.create_stream(t, n, ["v"]) for n in "ab")
+        reg.create_composite(t, "ab", ["v"], [a, b], {"v": "a.v * 2.0 + b.v"})
+        q = reg.create_stream(u, "q", ["v"])
+        reg.create_composite(u, "q1", ["v"], [q], {"v": "q.v + 1.0"})
+        return create_engine(reg, device=device)
+
+    def feed(e, step):
+        rng = np.random.default_rng([7, step])
+        by = {s.name: s for s in e.registry.streams if s is not None}
+        e.post(by["q"].sid, [float(step)], ts=10 * step)
+        for dt in (0, 1):
+            if step in (1, 4):
+                inject_payload_corruption(e, by["a"].sid, 10 * step + dt, rng)
+            else:
+                e.post(by["a"].sid, [0.5 * step + dt], ts=10 * step + dt)
+        e.post(by["b"].sid, [-1.0 * step], ts=10 * step)
+        if step == 3:
+            inject_hostile_program(e, by["ab"], [by["a"], by["b"]], rng)
+
+    def chaos(e, step):
+        if step == kill_at:
+            e._ckpt.wait()
+            assert corrupt_checkpoint(str(tmp_path), np.random.default_rng(0),
+                                      mode="truncate") is not None
+            raise ShardKill("drill kill")
+
+    eng = engine(dev)
+    before = fused_round_call.launches
+    sup = Supervisor(eng, str(tmp_path), feed=feed, chaos=chaos, K=K)
+    report = sup.run(n_steps)
+    torch.cuda.synchronize()
+    inc, = report.incidents
+    assert report.recovered and inc.restored_step == 2
+    got = report.engine
+    assert got is not eng and got.device == dev and got._path == "fused"
+    n_super = n_steps - 1 + inc.replayed_steps
+    assert fused_round_call.launches == before + n_super * K
+    twin = engine("cpu")
+    for step in range(n_steps):
+        feed(twin, step)
+        twin.superstep(K)
+    got.checkpoint_to(None)
+    (xa, ma), (xb, mb) = got.snapshot(), twin.snapshot()
+    assert sorted(xa) == sorted(xb) and ma == mb
+    for k in xa:
+        np.testing.assert_array_equal(_bits(xa[k]), _bits(xb[k]), err_msg=k)
+    assert got.fault_counters()["quarantined"].any()

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.kernels.mlstm_chunk.ops",
               "repro_torch.kernels.mlstm_chunk.kernel",
               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-              "repro_torch.launch", "repro_torch.launch.autoscale"):
+              "repro_torch.launch", "repro_torch.launch.autoscale",
+              "repro_torch.launch.chaos", "repro_torch.launch.supervise"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
