@@ -49,7 +49,9 @@ Phases, each printed on its own line:
    without the early mask at the smoke shape ((4096, 16) out-table,
    B = 64), the shard shape ((1024, 16) against 4,096 timestamps) and
    odd shapes (valid events with out-of-range sids, entries below -1 and
-   at or past the timestamps, INT32_MIN/MAX timestamps).
+   at or past the timestamps, INT32_MIN/MAX timestamps).  Also
+   ``selective_scan`` at jamba's decode shape (B 4, L 1, Di 8,192, S 16,
+   a non-zero carried state) within 1e-4, timed beside its plain version.
 3. Drive the fused main path (``StreamEngine.round``) at the default
    ``EngineConfig`` widths with 4,096 streams for 48 rounds, once through
    the kernels and once through their plain versions; every state leaf,
@@ -95,8 +97,9 @@ Phases, each printed on its own line:
 11. The IoT suite at 128 tenants, where every round drains, at 4 shards
     against 1 shard, both through the kernels: latency histograms, SLO
     report, records, window aggregates and counters equal.  Then phase 7
-    on 4 shards: the full-width suite through the kernels and through
-    their plain versions, bitwise.
+    on 4 shards at 8 trace rounds (``SHARDED_SUITE_ROUNDS``): the
+    full-width suite through the kernels and through their plain
+    versions, bitwise.
 12. The engine with the stream-dispatch fan-out
     (``fanout_fn=make_fanout()``) on every path that calls it: 16 staged
     single-device rounds (phase 5's registry), two staged supersteps of
@@ -165,14 +168,15 @@ Phases, each printed on its own line:
     lengths that are no multiple of the chunk, Dh up to 1,024 and forget
     gates near 0 and 1 and very negative input gates, once with float32
     and once with bf16 q, k, v (the plain version upcasts them).
-19. ``make_prefill_step`` of xlstm-1.3b at its published size (48
-    layers: 6 sLSTM, 42 mLSTM; B 2, L 4,096) in bf16, weights and prompts
-    from the seed: the counted prefill must launch ``mlstm_chunkwise``'s
-    five kernels once per mLSTM layer (210) and nothing else; per leaf,
-    kernels against plain beside the plain version against itself with
+19. ``make_prefill_step`` of xlstm-1.3b at full width and three of its six
+    periods (``XLSTM_LAYERS`` = 24 of 48 layers: 3 sLSTM, 21 mLSTM; B 2,
+    L 4,096) in bf16, weights and prompts from the seed: the counted
+    prefill must launch ``mlstm_chunkwise``'s five kernels once per mLSTM
+    layer (105) and nothing else; per leaf, kernels (in bf16 the counted
+    prefill) against plain beside the plain version against itself with
     the token embeddings one ulp up, in bf16 and in float32 (gated only
     on finite values: the whole model amplifies a last-bit difference far
-    past 1e-4); bf16 prefills timed (2 each, after earlier runs), prompt
+    past 1e-4); bf16 prefills timed (1 each, after earlier runs), prompt
     tokens/s, peak memory, and one more prefill with each sLSTM scan
     timed.  G2: every layer fed the plain run's input, its
     output and cache leaves within 0.1 (bf16) and 1e-4 (float32) of the
@@ -187,7 +191,7 @@ Phases, each printed on its own line:
     last mLSTM inputs, and on the same with q, k, v in bf16, each of its
     five kernels alone too, beside its plain version and its bound (the
     operations at the bf16 tensor-core peak, or the bytes), with the
-    tensor work of its piece products (phase 19 also times the six plain
+    tensor work of its piece products (phase 19 also times the three plain
     sLSTM scans inside one bf16 prefill).
 
 22. Kill and resume at the smoke cell's width with retention rings of 16
@@ -198,7 +202,7 @@ Phases, each printed on its own line:
     (``checkpoint_to``) is deleted after four supersteps and rebuilt by
     ``restore_engine`` from the directory; it must equal an engine that
     ran the same input without interruption and a plain-version engine,
-    at the resume point and after one round and two supersteps more
+    at the resume point and after one round and one superstep more
     (every snapshot array: tables, state, stats, retention rings, dead
     letters, backlog; every sink).  A truncated leaf of the newest
     checkpoint must make ``load`` raise ``CheckpointCorrupt`` and
@@ -211,8 +215,8 @@ Phases, each printed on its own line:
     quota-shed SUs drained and redelivered, a revoked stream's purged
     queue redelivered (refused, spooled again and counted in
     ``redeliver_rejected``), and the rounds after each.
-24. The resize chain 1 -> 2 -> 4 -> 2 -> 1 with a loaded queue at each
-    hop: each resize equal to ``restore_engine(snapshot, n_shards=M)``
+24. The resize chain 1 -> 2 -> 4 -> 2 -> 1 (supersteps of K = 4) with a
+    loaded queue at each hop: each resize equal to ``restore_engine(snapshot, n_shards=M)``
     and to the plain-version engine resized alike, also after a superstep
     more, the kernels launched at each shard count (``exchange_compact``
     and ``apply_programs`` at D = 2); ms per resize.  Then an
@@ -236,6 +240,40 @@ Phases, each printed on its own line:
     and the synchronised time of the step that recovered are printed
     beside phase 22's ``restore_engine`` times.
 
+26. ``make_decode_step`` at full width: gemma3-1b (26 layers, B 4, L
+    1,536, so the local layers' 512-slot rings wrap), and the first
+    period (8 layers) of jamba-v0.1-52b (B 2, L 512: its MoE groups
+    min(512, L) tokens, which must divide L and L - 1) and of
+    xlstm-1.3b (B 4, L 1,536).  ``make_prefill_step(pad_to=L)`` on
+    L - 1 tokens and one decode step of the last equal the last logits
+    of a prefill of all L tokens: within 1e-4 of the max in float32 and
+    0.1 in bf16 (jamba only in float32, its MoE capacity raised to hold
+    every token: a decode token is never dropped, a prefill token can
+    be).  jamba's bf16 decode through the kernels against the plain
+    versions (the plain pass on the kernel pass's experts,
+    ``RouteReplay``), every returned leaf within 0.1.  The counted decode
+    step launches ``selective_scan_call`` once per Mamba layer and no
+    other kernel.
+27. The continuous batcher on gemma3-1b at its published size, 4 slots,
+    8 requests (each slot serves twice): in float32 its tokens equal
+    greedy decoding through ``forward`` (the reference's smallest top-2
+    logit gap above 1e-4); in bf16 timed: ms per tick, tokens/s, CUDA
+    kernels and host synchronisations per tick, KV-cache bytes and the
+    tick's memory bound.  Then ``repro_torch.launch.serve.main`` once at
+    full width.
+28. PRED flows through the serving bridge: ``build_suite`` with ETL,
+    STATS and PRED tenants in turn (24 tenants, 12 trace rounds and 4
+    more, supersteps of K = 4), ``wire_pred`` with a bf16 gemma3-1b
+    batcher (4 slots), at 1 shard and at 4 shards, fused; the engine
+    through the kernels against the engine through their plain versions,
+    each with its own batcher on the same weights, the model under
+    ``torch.use_deterministic_algorithms(True)`` (``main`` sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts, as that mode needs):
+    engine state, SLO histograms and report,
+    window store, the bridge's completions and the response streams
+    bitwise, the round kernels once per round.  PRED latency p50/p95/p99
+    (rounds), requests, ticks and ``drive()`` wall time are printed.
+
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero before them.
@@ -245,6 +283,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1294,11 +1333,17 @@ def phase_superstep(torch, dev, reg, sources, path, K, n_steps, counter,
 
 SUITE = dict(n_tenants=1024, batch=64, queue=2048, window=256, rounds=32,
              K=8)
+# trace rounds of the full-width suite on 4 shards (phase 11): its plain
+# version takes ~0.4 s a round there, so 32 rounds cost two minutes.  At 8
+# (12 supersteps, 96 rounds) its queues still settle: the records' p99 is 7
+# rounds.
+SHARDED_SUITE_ROUNDS = 8
 
 
-def run_suite(torch, dev, use_kernel, counters, n_shards=1):
+def run_suite(torch, dev, use_kernel, counters, n_shards=1, rounds=32):
     """Build the full-width suite on ``n_shards`` shards and replay its
-    trace once; every launch counter is 0 just before ``drive``.  Returns
+    trace of ``rounds`` rounds once; every launch counter is 0 just before
+    ``drive``.  Returns
     (suite, drive's result, the latency records of every superstep, wall
     seconds of ``drive``)."""
     from repro_torch.workloads import TraceConfig, build_suite, drive
@@ -1306,7 +1351,7 @@ def run_suite(torch, dev, use_kernel, counters, n_shards=1):
         SUITE["n_tenants"], kinds=("etl", "stats"), batch=SUITE["batch"],
         queue=SUITE["queue"], window=SUITE["window"], n_shards=n_shards,
         trace=TraceConfig(n_devices=SUITE["n_tenants"],
-                          rounds=SUITE["rounds"], seed=0),
+                          rounds=rounds, seed=0),
         cfg_overrides={"superstep": SUITE["K"]}, device=dev,
         use_kernel=use_kernel)
     if suite.engine._path != "fused":
@@ -1335,12 +1380,15 @@ def phase_suite(torch, dev, counters, n_shards=1):
     launches per kernel)."""
     import numpy as np
     tag = "suite" if n_shards == 1 else f"sharded suite D={n_shards}"
+    trace = SUITE["rounds"] if n_shards == 1 else SHARDED_SUITE_ROUNDS
     t0 = time.perf_counter()
-    sp, outp, logp, _ = run_suite(torch, dev, False, counters, n_shards)
+    sp, outp, logp, _ = run_suite(torch, dev, False, counters, n_shards,
+                                  trace)
     build_and_plain = time.perf_counter() - t0
-    sk, outk, logk, wall = run_suite(torch, dev, None, counters, n_shards)
+    sk, outk, logk, wall = run_suite(torch, dev, None, counters, n_shards,
+                                     trace)
     launches = {c.__name__: c.launches for c in counters}
-    n_steps = SUITE["rounds"] + 4
+    n_steps = trace + 4
     rounds = n_steps * SUITE["K"]
     want = {"fused_round_call": rounds} if n_shards == 1 else {
         "sched_pop_call": n_shards * rounds, "apply_programs_call": rounds,
@@ -2499,6 +2547,18 @@ def prefill_inputs(torch, dev, cfg, B, seed):
     return params, {"tokens": tokens}
 
 
+def upcast(torch, params) -> None:
+    """Every leaf of ``params`` to float32 in place, leaf by leaf (the
+    bf16 copy of a leaf is freed before the next is made)."""
+    for node_path in [path for path, _ in leaves(params)]:
+        node = params
+        *keys, last = node_path.split("/")
+        for k in keys:
+            node = node[k]
+        node[last] = node[last].float()
+    torch.cuda.empty_cache()
+
+
 def bf16_gate(arch, seed, run, out_k, out_p, flips):
     """Fail unless every leaf of the bf16 kernel pass is within 0.1 of
     the leaf's max |plain|; print and return the worst ratio."""
@@ -2593,14 +2653,7 @@ def phase_prefill(torch, dev, arch, n_layers, B, counters):
         torch.cuda.empty_cache()
         params, batch = prefill_inputs(torch, dev, cfg, B, PREFILL_SEEDS[0])
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        for node_path, t in list(leaves(params)):  # upcast in place, leaf by leaf
-            node = params
-            *keys, last = node_path.split("/")
-            for k in keys:
-                node = node[k]
-            node[last] = t.float()
-            del t
-        torch.cuda.empty_cache()
+        upcast(torch, params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_k, out_p, flips = replay.paired(
@@ -2746,6 +2799,10 @@ def time_model_kernels(torch, dev, errs, launches, fa_build):
 
 XLSTM = "xlstm-1.3b"
 XLSTM_BATCH = 2
+# three of the published six periods (24 of 48 layers): every prefill of
+# phases 19-20 spends most of its time in the sLSTM scans' host loop, one
+# layer a period, so the phase's time follows the depth
+XLSTM_LAYERS = 24
 # (B, H, L, Dh, chunk, gates): the sweep of tests/test_kernels.py:119, then
 # lengths no multiple of the chunk, Dh up to 1024, extreme gates, and full
 # chunks of 256 rows after the first whose starting state still weighs
@@ -2936,13 +2993,12 @@ def layer_walk(torch, cfg, params, batch, gate, tag, record=()):
     return recorded, worst, slstm
 
 
-def full_depth_pass(torch, step_k, step_p, params, batch, nudged):
-    """Kernels against plain and the plain version against itself on
-    embeddings nudged by one ulp: (ratios, ratios, kernel output)."""
-    out_k = step_k(params, batch)
+def full_depth_pass(torch, out_k, step_p, params, batch, nudged):
+    """``out_k``, a prefill through the kernels, against the plain prefill,
+    and the plain version against itself on embeddings nudged by one ulp:
+    (ratios, ratios)."""
     out_p = step_p(params, batch)
     kp = leaf_ratios(f"{XLSTM} kernels vs plain", out_k, out_p)
-    del out_k
     tok = params["embed"]["tok"]
     params["embed"]["tok"] = nudged
     try:
@@ -2954,14 +3010,13 @@ def full_depth_pass(torch, step_k, step_p, params, batch, nudged):
 
 
 def phase_xlstm(torch, dev, counters):
-    """xlstm-1.3b at its published size (48 layers, B 2, L 4096; 1 sLSTM and
-    7 mLSTM layers a period).  The counted bf16 prefill (its
-    ``mlstm_chunkwise`` launches must be LAUNCHES_PER_CALL per mLSTM
-    layer); bf16
-    prefills timed through the kernels and through their plain versions;
-    per leaf, kernels against plain beside the plain version against
-    itself with the embeddings one ulp up, in bf16 and in float32 (gate:
-    finite); G2 in bf16 (0.1) and float32 (1e-4); G1 at full width on
+    """xlstm-1.3b at full width and XLSTM_LAYERS of its 48 layers (B 2,
+    L 4096; 1 sLSTM and 7 mLSTM layers a period).  The counted bf16
+    prefill (its ``mlstm_chunkwise`` launches must be LAUNCHES_PER_CALL
+    per mLSTM layer); bf16 prefills timed through the kernels and through
+    their plain versions; per leaf, kernels (the counted prefill in bf16)
+    against plain beside the plain version against itself with the
+    embeddings one ulp up, in bf16 and in float32 (gate: finite); G2 in bf16 (0.1) and float32 (1e-4); G1 at full width on
     the inputs the bf16 and the float32 plain runs feed their first and
     last mLSTM layer (bf16 q, k, v in the layout the model's einsum
     leaves them); G3 on the first period against float64.  Returns the
@@ -2975,6 +3030,8 @@ def phase_xlstm(torch, dev, counters):
     from repro_torch.models.model import count_params, make_prefill_step
     t_phase = time.perf_counter()
     cfg = get_config(XLSTM)
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=XLSTM_LAYERS).validate()
     B = XLSTM_BATCH
     kinds = [m for m, _ in cfg.layer_specs]
     want = {"flash_attention_call": 0, "selective_scan_call": 0,
@@ -2983,9 +3040,9 @@ def phase_xlstm(torch, dev, counters):
     params, batch = prefill_inputs(torch, dev, cfg, B, PREFILL_SEEDS[0])
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
-    print(f"[xlstm] {XLSTM}: {cfg.n_layers} layers, the published depth "
-          f"({kinds.count(SLSTM)} sLSTM, {kinds.count(MLSTM)} mLSTM), full "
-          f"width; {count_params(cfg)} parameters ({n_bytes} bytes on the "
+    print(f"[xlstm] {XLSTM}: {cfg.n_layers} of the published {published} "
+          f"layers ({kinds.count(SLSTM)} sLSTM, {kinds.count(MLSTM)} mLSTM), "
+          f"full width; {count_params(cfg)} parameters ({n_bytes} bytes on the "
           f"card, {cfg.compute_dtype}) drawn in "
           f"{time.perf_counter() - t0:.2f} s; B={B}, L={PROMPT}", flush=True)
     step_k = make_prefill_step(cfg)
@@ -3000,19 +3057,19 @@ def phase_xlstm(torch, dev, counters):
         if launches[name] != n:
             fail(f"{XLSTM}: {name} launched {launches[name]} times in one "
                  f"prefill, expected {n}")
-    del out
     print(f"[xlstm] launches in the counted prefill "
           f"{ {k: launches[k] for k in want} } ({LAUNCHES_PER_CALL} CUDA "
           f"launches per mlstm_chunkwise call, one call per mLSTM layer)",
           flush=True)
     ratios = {}
     ratios["bf16"] = full_depth_pass(
-        torch, step_k, step_p, params, batch,
+        torch, out, step_p, params, batch,
         nudge_up(torch, params["embed"]["tok"]))
+    del out
     ms = {}
     for tag, step in (("kernels", step_k), ("plain", step_p)):
-        ms[tag], peak = timed_prefill(torch, step, params, batch, 2)
-        print(f"[xlstm] {XLSTM} bf16 {tag}: {ms[tag]} ms per prefill (2, "
+        ms[tag], peak = timed_prefill(torch, step, params, batch, 1)
+        print(f"[xlstm] {XLSTM} bf16 {tag}: {ms[tag]} ms per prefill (1, "
               f"after earlier runs of both), {B * PROMPT / ms[tag] * 1e3} "
               f"prompt tokens/s, max_memory_allocated {peak} bytes",
               flush=True)
@@ -3047,10 +3104,11 @@ def phase_xlstm(torch, dev, counters):
         node[leaf] = t.float()
         del t
     torch.cuda.empty_cache()
+    out = make_prefill_step(cfg32)(params, batch)
     ratios["f32"] = full_depth_pass(
-        torch, make_prefill_step(cfg32), make_prefill_step(
-            cfg32, use_kernel=False), params, batch,
-        nudge_up(torch, params["embed"]["tok"]))
+        torch, out, make_prefill_step(cfg32, use_kernel=False), params,
+        batch, nudge_up(torch, params["embed"]["tok"]))
+    del out
     print(f"[xlstm] full depth ({cfg.n_layers} layers, L {PROMPT}), per leaf "
           "max |diff| / max |plain|: kernels vs plain, and the plain "
           "version vs itself with the token embeddings one ulp up (not "
@@ -3387,7 +3445,7 @@ def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
     engine take the same input without interruption.  After four
     supersteps A is deleted and ``restore_engine`` rebuilds it from the
     newest checkpoint; the restored engine, B and the plain engine take one
-    eager round and two supersteps more.  Gates: the restored engine
+    eager round and one superstep more.  Gates: the restored engine
     equals B at the resume point and at the end (every snapshot array and
     every sink bitwise) and equals the plain engine; the kernels launched
     once per round of the three kernel engines.  Then one leaf of the
@@ -3405,7 +3463,7 @@ def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
     import numpy as np
     from repro_torch.checkpoint import ckpt
     from repro_torch.core import create_engine, restore_engine
-    K, before, after = 8, 4, 2
+    K, before, after = 8, 4, 1
     B = reg.cfg.batch
     kw = dict(DURABLE, superstep=K, checkpoint_every=2)
     if shards > 1:
@@ -3661,7 +3719,7 @@ def autoscale_run(dev, reg, sources, use_kernel):
 def phase_elastic(torch, dev, reg, sources, counters, smi):
     """Phase 24: the resize chain 1 -> 2 -> 4 -> 2 -> 1 on a kernel engine
     and a plain-version engine (``reg``'s fused path, retention 16, DLQ
-    512, K = 8), a superstep of 8 x batch posts before each hop so that
+    512, K = 4), a superstep of 4 x batch posts before each hop so that
     the queue is loaded when it moves.  Gates at every hop: the resized
     engine equals ``restore_engine(snapshot, n_shards=M)`` taken just
     before (every snapshot array), and the plain engine resized alike;
@@ -3674,7 +3732,7 @@ def phase_elastic(torch, dev, reg, sources, counters, smi):
     import dataclasses
     import numpy as np
     from repro_torch.core import create_engine, restore_engine
-    K = 8
+    K = 4
     kw = dict(DURABLE, exchange_slots=0, superstep=K)
     e = create_engine(copy_registry(reg, **kw), device=dev)
     e_p = plain_engine(copy_registry(reg, **kw), dev)
@@ -3985,6 +4043,437 @@ def phase_chaos(torch, dev, reg, sources, shards, counters, smi,
           f"(s): {parts}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 26-28: the serving path (decode step, batcher, PRED flows)
+# --------------------------------------------------------------------------
+
+# jamba's Mamba layer at one decode token per slot: (B, L, Di, S)
+DECODE_SCAN = (4, 1, 8192, 16)
+# (arch, one period only, B, L): gemma3-1b at its published depth, L 1,536
+# so that its local layers' 512-slot rings wrap; jamba's and xlstm-1.3b's
+# first period (8 layers each).  jamba's L is 512 because its MoE groups
+# min(512, L) tokens and must divide both L and L - 1.
+DECODE_MODELS = (("gemma3-1b", False, 4, 1536),
+                 ("jamba-v0.1-52b", True, 2, 512),
+                 ("xlstm-1.3b", True, 4, 1536))
+
+
+def phase_decode_scan(torch, dev):
+    """Phase 2's selective scan at jamba's decode shape (B 4, L 1, Di
+    8,192, S 16, a non-zero carried state h0) against its plain version
+    within 1e-4, timed beside the plain version and its bound."""
+    from repro_torch.kernels.selective_scan.kernel import plan_selective_scan
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    B, L, Di, S = DECODE_SCAN
+    args = scan_inputs(torch, gen, B, L, Di, S)
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    wy, wh = selective_scan(*args, use_kernel=False)
+    err = max(close_or_fail(f"selective_scan decode y {DECODE_SCAN}", y, wy,
+                            1e-4),
+              close_or_fail(f"selective_scan decode h {DECODE_SCAN}", h, wh,
+                            1e-4))
+    launch, _ = plan_selective_scan(*args)
+    ms, host, prof = device_ms(torch, launch, "selective_scan_kernel", 200)
+    plain = time_ms(lambda: selective_scan(*args, use_kernel=False), reps=20)
+    n_bytes = (2 * B * L * Di * S + B * L * S + 2 * B * Di * S + B * L * Di) * 4
+    bound, by = bound_ms(n_bytes, 4 * B * L * Di * S, 0.0)
+    print(f"[kernels] selective_scan at jamba's decode shape (B {B}, L {L}, "
+          f"Di {Di}, S {S}, h0 ~ N(0, 1)) == plain within 1e-4 (max |diff| "
+          f"{err}); kernel {ms} ms (CUDA events over 200 back-to-back "
+          f"launches; host enqueue {host} ms), profiler {prof} ms; plain "
+          f"{plain} ms; bound {bound} ms ({by}; {n_bytes} bytes)", flush=True)
+    return err, dict(shape=list(DECODE_SCAN), ms=ms, profiler_ms=prof,
+                     plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
+def decode_vs_prefill(torch, cfg, params, tokens, counters, want):
+    """prefill(L - 1, pad_to=L) then one decode step of token L - 1,
+    against the last position of a prefill of all L tokens, through the
+    kernels.  Fails unless the decode step launched exactly ``want``;
+    returns (max |diff| / max |prefill|, ms of the decode step)."""
+    from repro_torch.models.model import make_decode_step, make_prefill_step
+    B, L = tokens.shape
+    full, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
+    _, caches = make_prefill_step(cfg, pad_to=L)(params,
+                                                 {"tokens": tokens[:, :-1]})
+    pos = torch.full((B,), L - 1, dtype=torch.int32, device=tokens.device)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = make_decode_step(cfg)(params, caches,
+                                      {"tokens": tokens[:, -1:]}, pos)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_launches(f"{cfg.name} decode step", counters, want)
+    ratio, _ = worst_leaf(cfg.name, logits[:, 0], full)
+    return ratio, ms
+
+
+def phase_decode(torch, dev, counters):
+    """Phase 26: ``make_decode_step`` at full width.  For each model of
+    DECODE_MODELS, prefill(L - 1) + decode == the prefill of all L
+    tokens' last logits: gemma3-1b and xlstm-1.3b in bf16 (within 0.1 of
+    the max) and float32 (1e-4); jamba in float32 with the MoE capacity
+    raised to hold every token (a decode token is never dropped, a
+    prefill token can be), and its bf16 decode through the kernels
+    against the plain versions (every returned leaf within 0.1; the plain
+    pass on the kernel pass's experts).  The decode step launches
+    ``selective_scan_call`` once per Mamba layer and no other kernel.
+    Returns the selective-scan launches of the counted decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import MAMBA
+    from repro_torch.models.model import make_decode_step, make_prefill_step
+    scan_launches = 0
+    for arch, one_period, B, L in DECODE_MODELS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if one_period:
+            cfg = dataclasses.replace(cfg, n_layers=cfg.period).validate()
+        n_mamba = sum(m == MAMBA for m, _ in cfg.layer_specs)
+        want = {c.__name__: 0 for c in counters}
+        want["selective_scan_call"] = n_mamba
+        params, batch = prefill_inputs(torch, dev, cfg, B, SEED + 26)
+        tokens = batch["tokens"][:, :L].contiguous()
+        ratios = {}
+        if cfg.n_experts:
+            with RouteReplay() as replay:
+                outs = []
+                for mode, uk in (("record", None), ("replay", False)):
+                    replay.start(mode)
+                    _, caches = make_prefill_step(
+                        cfg, pad_to=L, use_kernel=uk)(
+                            params, {"tokens": tokens[:, :-1]})
+                    pos = torch.full((B,), L - 1, dtype=torch.int32,
+                                     device=dev)
+                    for c in counters:
+                        c.launches = 0
+                    out = make_decode_step(cfg, use_kernel=uk)(
+                        params, caches, {"tokens": tokens[:, -1:]}, pos)
+                    torch.cuda.synchronize()
+                    if uk is None:
+                        got = check_launches(f"{arch} counted decode step",
+                                             counters, want)
+                        scan_launches += got["selective_scan_call"]
+                    outs.append(out)
+                    del caches
+                if replay.calls != len(replay.recorded):
+                    fail(f"{arch}: the plain pass routed {replay.calls} "
+                         f"times, the kernel pass {len(replay.recorded)}")
+                flips = f"{replay.flips} of {replay.tokens}"
+            ratio, path = worst_leaf(
+                arch, {"logits": outs[0][0], "caches": outs[0][1]},
+                {"logits": outs[1][0], "caches": outs[1][1]})
+            if ratio > 0.1:
+                fail(f"{arch} bf16 decode: kernels vs plain at {path} read "
+                     f"{ratio} of the leaf's max |plain|, above 0.1")
+            ratios["bf16 kernels vs plain"] = (ratio, path, flips)
+            del outs
+        else:
+            ratio, ms = decode_vs_prefill(torch, cfg, params, tokens,
+                                          counters, want)
+            if ratio > 0.1:
+                fail(f"{arch} bf16: decode vs prefill logits read {ratio} of "
+                     "the max, above 0.1")
+            ratios["bf16 decode vs prefill"] = (ratio, f"{ms} ms decode")
+        upcast(torch, params)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        if cfg.n_experts:
+            cfg32 = dataclasses.replace(
+                cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+        ratio, ms = decode_vs_prefill(torch, cfg32, params, tokens, counters,
+                                      want)
+        if ratio > 1e-4:
+            fail(f"{arch} float32: decode vs prefill logits read {ratio} of "
+                 "the max, above 1e-4")
+        ratios["float32 decode vs prefill"] = (ratio, f"{ms} ms decode")
+        del params, batch, tokens
+        torch.cuda.empty_cache()
+        print(f"[decode] {arch}: {cfg.n_layers} layers at full width, B {B}, "
+              f"L {L}; prefill(L - 1) + decode of token L - 1: {ratios} "
+              f"(max |diff| / max; gates 0.1 bf16, 1e-4 float32); the "
+              f"counted decode launched {want} ; "
+              f"{time.perf_counter() - t_arch:.1f} s", flush=True)
+    return scan_launches
+
+
+BATCHER = dict(slots=4, requests=8, max_len=512, greedy_tokens=4,
+               timed_tokens=32)
+
+
+def serve_requests(torch, b, n, max_tokens):
+    """Submit ``n`` requests (prompts of three tokens, as the launcher's)
+    and decode until drained; returns ({rid: tokens}, wall seconds)."""
+    from repro_torch.serving import Request
+    for i in range(n):
+        b.submit(Request(rid=i, prompt=[2 + i, 7, 11 + i],
+                         max_tokens=max_tokens))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = b.run_until_drained()
+    torch.cuda.synchronize()
+    return {r.rid: r.output for r in done}, time.perf_counter() - t0
+
+
+def greedy_forward(torch, cfg, params, prompt, n):
+    """Plain greedy decoding through ``forward`` over the whole sequence
+    each token; returns (tokens, the smallest top-2 logit gap)."""
+    from repro_torch.models.model import forward
+    toks, gap = list(prompt), float("inf")
+    dev = params["final"]["norm"].device
+    for _ in range(n):
+        lg, _, _ = forward(cfg, params,
+                           tokens=torch.tensor([toks], device=dev))
+        top = lg[0, -1].float().topk(2).values.tolist()
+        gap = min(gap, top[0] - top[1])
+        toks.append(int(lg[0, -1].float().argmax()))
+    return toks[len(prompt):], gap
+
+
+def phase_batcher(torch, dev, smi):
+    """Phase 27: the continuous batcher on gemma3-1b at its published
+    size, 4 slots, 8 requests (each slot serves twice).  In float32 its
+    tokens equal greedy decoding through ``forward`` on a well-posed run
+    (the reference's smallest top-2 gap above 1e-4).  In bf16, timed: ms
+    per tick, tokens/s, CUDA kernels and host synchronisations per tick
+    (the profiler's kernel events, ``set_sync_debug_mode("warn")``'s
+    warnings), the KV-cache bytes and the tick's memory bound (every
+    weight and cache byte read once at the HBM rate).  Then the launcher,
+    ``repro_torch.launch.serve.main``, once at full width."""
+    import dataclasses
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousBatcher
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params, _ = prefill_inputs(torch, dev, cfg32, 1, SEED + 27)
+    b = ContinuousBatcher(cfg32, params, slots=BATCHER["slots"],
+                          max_len=BATCHER["max_len"], device=dev)
+    got, _ = serve_requests(torch, b, BATCHER["requests"],
+                            BATCHER["greedy_tokens"])
+    gaps = []
+    for i in range(BATCHER["requests"]):
+        want, gap = greedy_forward(torch, cfg32, b.params, [2 + i, 7, 11 + i],
+                                   BATCHER["greedy_tokens"])
+        gaps.append(gap)
+        if got.get(i) != want:
+            fail(f"batcher float32: request {i} decoded {got.get(i)}, greedy "
+                 f"forward {want} (smallest top-2 gap {gap})")
+    if min(gaps) <= 1e-4:
+        fail(f"batcher float32: the greedy reference's smallest top-2 gap "
+             f"{min(gaps)} is not above 1e-4 (the run is not well posed)")
+    print(f"[batcher] gemma3-1b float32, {BATCHER['slots']} slots, "
+          f"{BATCHER['requests']} requests x {BATCHER['greedy_tokens']} "
+          f"tokens in {b.ticks} ticks == greedy decoding through forward "
+          f"(smallest top-2 gap {min(gaps)})", flush=True)
+    del b, params
+    torch.cuda.empty_cache()
+
+    params, _ = prefill_inputs(torch, dev, cfg, 1, SEED + 27)
+    b = ContinuousBatcher(cfg, params, slots=BATCHER["slots"],
+                          max_len=BATCHER["max_len"], device=dev)
+    serve_requests(torch, b, BATCHER["slots"], 4)            # warm-up
+    ticks0 = b.ticks
+    out, wall = serve_requests(torch, b, BATCHER["requests"],
+                               BATCHER["timed_tokens"])
+    n_ticks = b.ticks - ticks0
+    n_tok = sum(len(v) for v in out.values())
+    before = b.ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_requests(torch, b, BATCHER["slots"], 6)
+    prof_ticks = b.ticks - before
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "Memcpy" not in e.name and "Memset" not in e.name)
+    copies = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "Memcpy" in e.name)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            before = b.ticks
+            serve_requests(torch, b, BATCHER["slots"], 6)
+            sync_ticks = b.ticks - before
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    w_bytes = sum(t.numel() * t.element_size() for _, t in leaves(b.params))
+    kv = sum(t.numel() * t.element_size() for _, t in leaves(b.caches))
+    bound = (w_bytes + kv) / HBM_BYTES_PER_S * 1e3
+    ms_tick = wall * 1e3 / n_ticks
+    print(f"[batcher] gemma3-1b bf16 on {smi}: {BATCHER['requests']} "
+          f"requests x {BATCHER['timed_tokens']} tokens on "
+          f"{BATCHER['slots']} slots: {n_ticks} ticks in {wall} s = "
+          f"{ms_tick} ms per tick, {n_tok / wall} tokens/s; per tick "
+          f"{kernels / prof_ticks} CUDA kernels and {copies / prof_ticks} "
+          f"copies (profiler over {prof_ticks} ticks), {syncs / sync_ticks} host"
+          f" synchronisations (sync debug mode over {sync_ticks} ticks); "
+          f"KV caches {kv} bytes (max_len {BATCHER['max_len']}), weights "
+          f"{w_bytes} bytes; the tick's bound {bound} ms (weights and caches"
+          f" read once at {HBM_BYTES_PER_S / 1e12} TB/s) = {bound / ms_tick}"
+          f" of the tick", flush=True)
+    del b, params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    done = serve.main(["--arch", "gemma3-1b", "--requests", "8", "--slots",
+                       "4", "--max-tokens", "8", "--seed", str(SEED),
+                       "--device", str(dev)])
+    if len(done) != 8 or any(len(r.output) != 8 for r in done):
+        fail(f"launch.serve: {len(done)} requests served")
+    torch.cuda.empty_cache()
+    print(f"[batcher] repro_torch.launch.serve.main at full width: "
+          f"{len(done)} requests in {time.perf_counter() - t0:.1f} s with "
+          f"its weight draw; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(ms_per_tick=ms_tick, tokens_per_s=n_tok / wall,
+                bound_ms=bound, kernels_per_tick=kernels / prof_ticks,
+                syncs_per_tick=syncs / sync_ticks)
+
+
+# the PRED suite of phase 28: ETL, STATS and PRED tenants in turn (8 PRED
+# flows), each raw stream firing with probability 0.25 a trace round
+PRED = dict(n_tenants=24, rounds=12, K=4, slots=4, max_len=64)
+
+
+def pred_percentiles(suite):
+    """Nearest-rank p50/p95/p99 (rounds) over the PRED tenants' records."""
+    import numpy as np
+    tids = [f.tenant.tid for f in suite.flows if f.kind == "pred"]
+    h = suite.slo.hist[tids].sum(axis=0)
+    total = int(h.sum())
+    out = []
+    for q in (50, 95, 99):
+        rank = max(1, int(np.ceil(q / 100.0 * total)))
+        bucket = int(np.searchsorted(np.cumsum(h), rank, side="left"))
+        out.append((bucket + 1) * suite.slo.bucket_width - 1)
+    return out, total
+
+
+def run_pred(torch, dev, shards, use_kernel, cfg, params, counters):
+    """The PRED suite on ``shards`` shards with a bf16 gemma3-1b batcher
+    wired by ``wire_pred``, its decode steps under
+    ``torch.use_deterministic_algorithms(True)``; every launch counter 0
+    just before ``drive``.
+    Returns (suite, drive's result, wall seconds)."""
+    from repro_torch.serving import ContinuousBatcher
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    from repro_torch.workloads import wire_pred
+    suite = build_suite(
+        PRED["n_tenants"], n_shards=shards,
+        trace=TraceConfig(n_devices=PRED["n_tenants"], rounds=PRED["rounds"],
+                          seed=SEED),
+        cfg_overrides={"superstep": PRED["K"]}, device=dev,
+        use_kernel=use_kernel)
+    if suite.engine._path != "fused":
+        fail(f"the PRED suite took the {suite.engine._path} path")
+    batcher = ContinuousBatcher(cfg, params, slots=PRED["slots"],
+                                max_len=PRED["max_len"], device=dev)
+    step = batcher._step
+
+    def deterministic_step():
+        # the model under deterministic algorithms, so that both engines'
+        # batchers compute the same tokens; the engines are bitwise
+        # deterministic by design (phases 7 and 11)
+        torch.use_deterministic_algorithms(True)
+        try:
+            return step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    batcher._step = deterministic_step
+    wire_pred(suite, batcher)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = drive(suite, PRED["K"])
+    torch.cuda.synchronize()
+    return suite, out, time.perf_counter() - t0
+
+
+def phase_pred(torch, dev, shards, cfg, params, counters, smi):
+    """Phase 28 at ``shards`` shards (fused): the suite through the
+    kernels and through their plain versions, each with its own batcher
+    on the same weights, its decode steps under deterministic algorithms:
+    engine state,
+    SLO histograms and report, window store, the bridge's completions
+    (rids, prompts, outputs) and the response streams bitwise; the round
+    kernels once per round."""
+    import numpy as np
+    tag = f"PRED D={shards}"
+    sp, outp, _ = run_pred(torch, dev, shards, False, cfg, params, counters)
+    sk, outk, wall = run_pred(torch, dev, shards, None, cfg, params,
+                              counters)
+    rounds = (PRED["rounds"] + 4) * PRED["K"]
+    launches = check_launches(tag, counters,
+                              want_launches(rounds, shards, "fused"))
+    compare_engines(tag, sk.engine, [], sp.engine, [])
+    if not (np.array_equal(sk.slo.hist, sp.slo.hist)
+            and np.array_equal(sk.slo.violations, sp.slo.violations)
+            and outk["slo_report"] == outp["slo_report"]
+            and outk["records"] == outp["records"] > 0):
+        fail(f"{tag}: SLO histograms or report differ")
+    for f in sk.stats.store._fields:
+        compare(f"{tag} window store {f}", getattr(sk.stats.store, f),
+                getattr(sp.stats.store, f))
+
+    def done(s):
+        return [(r.rid, [int(t) for t in r.prompt], r.output)
+                for r in s.bridge.completed]
+    if done(sk) != done(sp) or not done(sk):
+        fail(f"{tag}: bridge completions differ or none completed")
+    for f in (f for f in sk.flows if f.kind == "pred"):
+        compare(f"{tag} response {f.response.name}",
+                torch.from_numpy(np.asarray(sk.engine.value_of(f.response))),
+                torch.from_numpy(np.asarray(sp.engine.value_of(f.response))))
+    (p50, p95, p99), n_pred = pred_percentiles(sk)
+    b = sk.bridge.batcher
+    print(f"[{tag}] {PRED['n_tenants']} tenants (ETL, STATS, PRED), "
+          f"{sk.registry.n_active} streams, {PRED['rounds']} trace rounds + "
+          f"4 in supersteps of K={PRED['K']}: kernels == plain bitwise "
+          f"(state, SLO histograms and report, window store, "
+          f"{len(sk.bridge.completed)} completions, response streams); "
+          f"launches {launches}; PRED latency p50/p95/p99 {p50}/{p95}/{p99} "
+          f"rounds over {n_pred} records (all tenants "
+          f"{outk['slo_report']['total']['p50']}/"
+          f"{outk['slo_report']['total']['p95']}/"
+          f"{outk['slo_report']['total']['p99']}); {sk.bridge._next_rid} "
+          f"requests, {b.ticks} ticks; drive() wall {wall} s on {smi}",
+          flush=True)
+    return dict(p50=p50, p95=p95, p99=p99, requests=sk.bridge._next_rid,
+                ticks=b.ticks, wall_s=wall)
+
+
+def engine_counters() -> tuple:
+    """The launch-counted wrappers of the engine's round kernels."""
+    from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
+                                                       exchange_compact_call,
+                                                       fused_round_call)
+    from repro_torch.kernels.sched_pop.kernel import sched_pop_call
+    from repro_torch.kernels.stream_dispatch.kernel import (
+        by_sid_snapshot_call, onehot_gather_call, stream_dispatch_call)
+    from repro_torch.kernels.window_agg.kernel import window_agg_call
+    return (fused_round_call, sched_pop_call, window_agg_call,
+            apply_programs_call, exchange_compact_call, stream_dispatch_call,
+            onehot_gather_call, by_sid_snapshot_call)
+
+
+def stamp(phase: str, t_start: float) -> None:
+    """The run's elapsed seconds as ``phase`` starts (the budget's ledger)."""
+    print(f"[time] phase {phase} starts at {time.perf_counter() - t_start:.1f}"
+          " s", flush=True)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4008,19 +4497,19 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         fail("src/repro_torch is not beside chip_smoke.py: run it from the "
              "root of a checkout")
+    # phase 28 runs the model under torch.use_deterministic_algorithms,
+    # which needs cuBLAS's workspace fixed before CUDA starts
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import EngineConfig
     from repro_torch.kernels import _build
     from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
-                                                       exchange_compact_call,
                                                        fused_round_call)
     from repro_torch.kernels.sched_pop.kernel import sched_pop_call
-    from repro_torch.kernels.stream_dispatch.kernel import (
-        by_sid_snapshot_call, onehot_gather_call, stream_dispatch_call)
-    from repro_torch.kernels.window_agg.kernel import window_agg_call
     from repro_torch.kernels.flash_attention.kernel import flash_attention_call
     from repro_torch.kernels.selective_scan.kernel import selective_scan_call
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunkwise_call
@@ -4049,12 +4538,15 @@ def main() -> None:
     print(f"[probe] {dep_cycles} SM cycles per dependent integer "
           f"instruction", flush=True)
 
+    stamp("2", t_start)
     # ---- 2. kernels against their plain versions -----------------------
     cfg = EngineConfig(n_streams=4096).validate()
     errs = phase_kernels(torch, dev, cfg)
     errs.update(phase_shard_kernels(torch, dev, cfg, SHARDS))
     errs.update(phase_dispatch_kernels(torch, dev, cfg, SHARDS))
+    scan_decode_err, scan_decode = phase_decode_scan(torch, dev)
 
+    stamp("3", t_start)
     # ---- 3. fused main path at full width ------------------------------
     import numpy as np
     rng = np.random.default_rng(SEED)
@@ -4063,50 +4555,56 @@ def main() -> None:
     print(f"[registry] {reg.n_active} streams ({len(sources)} sources) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     reg_fused = copy_registry(reg)          # before phase 5 adds tanh
-    counters = (fused_round_call, sched_pop_call, window_agg_call,
-                apply_programs_call, exchange_compact_call,
-                stream_dispatch_call, onehot_gather_call,
-                by_sid_snapshot_call)
+    counters = engine_counters()
     eng, fr_launches, _ = phase_path(torch, dev, reg, sources, "fused", 48,
                                      8, fused_round_call, counters)
 
+    stamp("4", t_start)
     # ---- 4. fused supersteps against eager rounds ----------------------
     phase_superstep(torch, dev, reg, sources, "fused", 8, 6,
                     fused_round_call, counters)
 
+    stamp("5", t_start)
     # ---- 5. staged main path: one tanh composite flips it --------------
     reg.create_composite(reg.tenants[0], "hot", CHANNELS, sources[:2],
                          {ch: f"tanh(in0.{ch}) + in1.{ch}" for ch in CHANNELS})
     _, sp_launches, _ = phase_path(torch, dev, reg, sources, "staged", 16,
                                    4, sched_pop_call, counters)
 
+    stamp("6", t_start)
     # ---- 6. staged supersteps against eager rounds ---------------------
     phase_superstep(torch, dev, reg, sources, "staged", 8, 2,
                     sched_pop_call, counters)
 
+    stamp("7", t_start)
     # ---- 7. the IoT suite at full width, kernels against plain ---------
     suite, suite_launches = phase_suite(torch, dev, counters)
 
+    stamp("8", t_start)
     # ---- 8. sharded fused round, churned, kernels against plain and the
     #         single-device engine --------------------------------------
     e_sh, sh_launches, _ = phase_sharded(torch, dev, reg_fused, sources,
                                          "fused", counters, waves=6,
                                          heavy=24, warm=8)
 
+    stamp("9", t_start)
     # ---- 9. sharded fused supersteps against eager sharded rounds ------
     phase_superstep(torch, dev, copy_registry(reg_fused, n_shards=SHARDS,
                                               exchange_slots=0),
                     sources, "fused", 8, 3, apply_programs_call, counters)
 
+    stamp("10", t_start)
     # ---- 10. sharded staged round, churned, kernels against plain ------
     phase_sharded(torch, dev, reg, sources, "staged", counters, waves=3,
                   heavy=16, warm=8)
 
+    stamp("11", t_start)
     # ---- 11. the IoT suite at D = SHARDS against D = 1, and at full
     #          width on D = SHARDS, kernels against plain ----------------
     phase_shard_suite(torch, dev, counters)
     phase_suite(torch, dev, counters, n_shards=SHARDS)
 
+    stamp("12", t_start)
     # ---- 12. the engine with the stream-dispatch fan-out, kernel against
     #          plain and against fanout_reference --------------------------
     t0 = time.perf_counter()
@@ -4115,6 +4613,7 @@ def main() -> None:
     print(f"[dispatch] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    stamp("13", t_start)
     # ---- 13. timings -----------------------------------------------------
     rows = phase_timings(torch, eng, errs, {"sched_pop": sp_launches,
                                             "fused_round": fr_launches},
@@ -4131,6 +4630,7 @@ def main() -> None:
             "onehot_gather": sum(r["onehot_gather_call"]
                                  + r["by_sid_snapshot_call"] for r in d_runs)},
         probe[1])
+    stamp("14", t_start)
     # ---- 14. the model kernels against their plain versions ---------------
     del eng, suite, e_sh, d_engines         # the engines' device memory
     torch.cuda.empty_cache()
@@ -4138,6 +4638,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False         # precision (the defaults)
     m_errs = phase_model_kernels(torch, dev)
 
+    stamp("15-16", t_start)
     # ---- 15-16. prefill of gemma3-1b and jamba-v0.1-52b at full width ----
     m_counters = counters + (flash_attention_call, selective_scan_call)
     m_launches = {"flash_attention_call": 0, "selective_scan_call": 0}
@@ -4146,20 +4647,25 @@ def main() -> None:
                                   m_counters).items():
             m_launches[k] += n
 
+    stamp("17", t_start)
     # ---- 17. timings of the model kernels -----------------------------------
     rows += time_model_kernels(torch, dev, m_errs, m_launches, fa_build)
 
+    stamp("18", t_start)
     # ---- 18. mlstm_chunkwise against its plain version and the oracle --------
     mlstm_err = phase_mlstm_kernel(torch, dev)
 
-    # ---- 19-20. the xLSTM prefill at full size: G2, G1 at full width, G3 -----
+    stamp("19-20", t_start)
+    # ---- 19-20. the xLSTM prefill at full width: G2, G1 at full width, G3 -----
     x_launches, x_err, _, mlstm_inputs_at = phase_xlstm(
         torch, dev, m_counters + (mlstm_chunkwise_call,))
 
+    stamp("21", t_start)
     # ---- 21. timings of mlstm_chunkwise and the sLSTM scan -------------------
     rows.append(time_mlstm(torch, mlstm_inputs_at, max(mlstm_err, x_err),
                            x_launches, mlstm_build, fmad))
 
+    stamp("22", t_start)
     # ---- 22. kill and resume from checkpoints ---------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4168,15 +4674,18 @@ def main() -> None:
                    for r, shards in ((reg_fused, 1), (reg, 1),
                                      (reg_fused, SHARDS))]
 
+    stamp("23", t_start)
     # ---- 23. replay and redelivery, kernels against plain ---------------
     for shards in (1, SHARDS):
         phase_redelivery(torch, dev, reg_fused, sources, shards, counters)
 
+    stamp("24", t_start)
     # ---- 24. the resize chain and the autoscaler -------------------------
     phase_elastic(torch, dev, reg_fused, sources, counters, smi)
     print(f"[durability] phases 22-24 took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    stamp("25", t_start)
     # ---- 25. the chaos drill under the supervisor -------------------------
     t0 = time.perf_counter()
     for shards in (1, SHARDS):
@@ -4184,6 +4693,37 @@ def main() -> None:
                     ms_restores)
     print(f"[chaos] phase 25 took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    stamp("26", t_start)
+    # ---- 26. the decode step at full width ------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scan_launches = phase_decode(torch, dev,
+                                 m_counters + (mlstm_chunkwise_call,))
+    t26 = time.perf_counter() - t0
+    for row in rows:
+        if row["name"] == "selective_scan":
+            row["launches"] += scan_launches
+            row["max_abs_err"] = max(row["max_abs_err"], scan_decode_err)
+            row["decode"] = dict(scan_decode, launches=scan_launches)
+
+    stamp("27", t_start)
+    # ---- 27. the continuous batcher at full width -------------------------
+    t0 = time.perf_counter()
+    phase_batcher(torch, dev, smi)
+    t27 = time.perf_counter() - t0
+
+    stamp("28", t_start)
+    # ---- 28. PRED flows through the serving bridge ------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    g3 = get_config("gemma3-1b")
+    g3_params, _ = prefill_inputs(torch, dev, g3, 1, SEED + 28)
+    for shards in (1, SHARDS):
+        phase_pred(torch, dev, shards, g3, g3_params, counters, smi)
+    del g3_params
+    print(f"[serving] phases 26, 27, 28 took {t26:.1f}, {t27:.1f}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,23 +1,26 @@
-"""GQA attention: global / sliding-window prefill and the KV caches it
-leaves (the port of ``repro.models.attention``; decode comes with the
-decode slice).
+"""GQA attention: global / sliding-window prefill, the KV caches it
+leaves and one-token decode against them (the port of
+``repro.models.attention``).
 
 Conventions: q (B, L, H, Dh), k/v (B, S, KV, Dh); grouped heads
 G = H // KV; softmax statistics in float32.  Sliding-window caches are
 ring buffers of ``window`` slots; the slot of absolute position p is
 ``p % window``.
 
-``attention_block`` attends through ``kernels.flash_attention`` (the
-CUDA kernel on the card, its plain version on the CPU); ``attend_causal``
-is ``repro``'s q-chunked jnp form, which also takes a soft cap and a
-query offset: the prefill path does not call it, the decode slice will.
+``attention_block`` attends a prompt through ``kernels.flash_attention``
+(the CUDA kernel on the card, its plain version on the CPU) and one
+decode token through :func:`decode_attend`, plain torch on every device
+as in ``repro``, which computes decode attention in jnp outside any
+Pallas kernel.  ``attend_causal`` is ``repro``'s q-chunked jnp form with a
+soft cap and a query offset, kept as the plain reference.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
 from repro_torch.models import layers
 
@@ -93,6 +96,18 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def init_kv_cache(B, S, n_kv, d_head, dtype, *, window: Optional[int] = None,
+                  device="cuda") -> KVCache:
+    """Zero cache of ``S`` slots (``min(S, window)`` for a sliding-window
+    layer) on ``device``: the card unless the caller asks for the CPU;
+    raises without CUDA."""
+    device = resolve_device(device)
+    slots = min(S, window) if window else S
+    shape = (B, slots, n_kv, d_head)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
 def cache_from_prefill(k, v, *, window: Optional[int] = None,
                        pad_to: Optional[int] = None) -> KVCache:
     """Build a decode cache from full prefill k/v (post-RoPE).
@@ -113,21 +128,45 @@ def cache_from_prefill(k, v, *, window: Optional[int] = None,
                    torch.nn.functional.pad(v, pad))
 
 
+def decode_attend(q, cache: KVCache, k_new, v_new, pos, *,
+                  softcap: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode: insert (k_new, v_new) at ``pos`` and attend.
+
+    q: (B, 1, H, Dh); k_new/v_new: (B, 1, KV, Dh); pos: (B,) integer
+    absolute position of the new token.  Row b writes slot ``pos[b] % S``
+    (the identity for a full-length cache, the ring's wrap for a
+    sliding-window one), indexed by ``arange(B)`` and that slot, so no
+    index leaves the cache.  The first ``min(pos + 1, S)`` slots are
+    attended.  Returns ((B, 1, H*Dh), the new cache); the given cache is
+    not written."""
+    B = q.shape[0]
+    S = cache.k.shape[1]
+    pos = pos.to(device=q.device, dtype=torch.long)
+    slot = torch.remainder(pos, S)
+    rows = torch.arange(B, device=q.device)
+    k = cache.k.index_put((rows, slot), k_new[:, 0].to(cache.k.dtype))
+    v = cache.v.index_put((rows, slot), v_new[:, 0].to(cache.v.dtype))
+    n_valid = torch.clamp(pos + 1, max=S)                # (B,)
+    mask = torch.arange(S, device=q.device)[None, :] < n_valid[:, None]
+    out = _attend(q, k, v, mask[:, None, None, None, :], softcap=softcap)
+    return out, KVCache(k, v)
+
+
 # --------------------------------------------------------------------------
 # Block wrapper used by model.py
 # --------------------------------------------------------------------------
 
 def attention_block(cfg, p, x, positions, *, local: bool, cache=None,
-                    cache_pad_to: Optional[int] = None,
+                    decode_pos=None, cache_pad_to: Optional[int] = None,
                     use_kernel: Optional[bool] = None):
-    """Pre-norm attention sub-block over a whole prompt (residual added by
-    the caller).  ``cache="collect"`` also returns the prefill-built
-    :class:`KVCache` (padded to ``cache_pad_to`` slots), else None.
-    ``use_kernel`` goes to ``flash_attention_blhd``."""
-    if cache not in (None, "collect"):
-        raise NotImplementedError("decode attention comes with the decode "
-                                  "step (ROADMAP.md, queue 1, item 4: the "
-                                  "model plane, the rest)")
+    """Pre-norm attention sub-block (residual added by the caller).
+
+    ``cache``: a :class:`KVCache` to decode one token against at
+    ``decode_pos`` (B,), returning the updated cache; "collect" to attend
+    the whole prompt and return its prefill-built cache (padded to
+    ``cache_pad_to`` slots); None for the prompt alone.  ``use_kernel``
+    goes to ``flash_attention_blhd`` (the prompt path)."""
     h = layers.rms_norm(x, p["norm"], cfg.norm_eps, plus_one=cfg.gemma_norm)
     q, k, v = qkv_project(h, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                           d_head=cfg.d_head,
@@ -142,10 +181,17 @@ def attention_block(cfg, p, x, positions, *, local: bool, cache=None,
             q = layers.apply_rope(q, pos2d, theta)
             k = layers.apply_rope(k, pos2d, theta)
     window = cfg.window if local else None
-    out = flash_attention_blhd(q, k, v, window=window,
-                               softcap=cfg.attn_logit_softcap,
-                               use_kernel=use_kernel)
     new_cache = None
-    if cache == "collect":
-        new_cache = cache_from_prefill(k, v, window=window, pad_to=cache_pad_to)
+    if isinstance(cache, KVCache):
+        if decode_pos is None:
+            raise ValueError("decoding against a KVCache needs decode_pos")
+        out, new_cache = decode_attend(q, cache, k, v, decode_pos,
+                                       softcap=cfg.attn_logit_softcap)
+    else:
+        out = flash_attention_blhd(q, k, v, window=window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   use_kernel=use_kernel)
+        if cache == "collect":
+            new_cache = cache_from_prefill(k, v, window=window,
+                                           pad_to=cache_pad_to)
     return out @ p["wo"], new_cache

@@ -3,8 +3,10 @@
 Both packages lay parameters and caches out alike (``prefix/l{i}``,
 stacked ``scan/s{j}``, the same leaf names), so a tree converts leaf by
 leaf: ``params_from_numpy`` takes ``repro``'s parameter tree as numpy
-arrays (``jax.tree.map(np.asarray, params)``) and ``caches_to_numpy``
-gives the port's caches back as numpy for comparison.
+arrays (``jax.tree.map(np.asarray, params)``), ``caches_from_numpy``
+does the same for a cache tree (``repro``'s prefill caches continue in
+the port's decode step) and ``caches_to_numpy`` gives the port's caches
+back as numpy for comparison.
 """
 from __future__ import annotations
 
@@ -32,6 +34,13 @@ def params_from_numpy(tree: Dict, device="cpu") -> Dict:
     """``repro``'s parameter (or cache) tree of numpy arrays -> the same
     tree of tensors on ``device``, values and dtypes unchanged."""
     return _map(lambda a: _to_torch(a, device), tree)
+
+
+def caches_from_numpy(tree: Dict, device="cpu") -> Dict:
+    """``repro``'s cache tree of numpy arrays -> the port's, on ``device``,
+    values and dtypes unchanged (bf16 leaves stay bf16): the inverse of
+    :func:`caches_to_numpy` up to its bf16 upcast."""
+    return params_from_numpy(tree, device)
 
 
 def caches_to_numpy(tree: Dict) -> Dict:

@@ -1,6 +1,6 @@
-"""Block-pattern language model on the prefill path (the port of
-``repro.models.model``: parameter and cache tables, ``forward`` and
-``make_prefill_step``; training and decode come with later slices).
+"""Block-pattern language model (the port of ``repro.models.model``:
+parameter and cache tables, ``forward``, ``make_prefill_step`` and the
+one-token ``make_decode_step``; training comes with a later slice).
 
 A model is ``ModelConfig.prefix + pattern * n_scan`` (mixer, mlp) layers.
 The parameter tree is ``repro``'s: unscanned ``prefix/l{i}`` layers and
@@ -12,6 +12,11 @@ Mamba layers scan through ``kernels.selective_scan`` and mLSTM layers
 through ``kernels.mlstm_chunk``: the CUDA kernels for tensors on the
 card, their plain versions on the CPU or with ``use_kernel=False``.
 sLSTM layers run a plain torch loop over time on every device.
+
+A decode step passes every layer its cache: attention decodes against
+its KV ring and mLSTM steps its (C, n, m) in plain torch, as ``repro``
+does; a Mamba layer continues its (conv, ssm) state through the
+selective-scan kernel at L = 1, the one kernel on the decode path.
 """
 from __future__ import annotations
 
@@ -20,10 +25,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM,
                                        MOE, SLSTM, ModelConfig)
-from repro_torch.models.params import ParamSpec, Path, count
+from repro_torch.models.params import ParamSpec, Path, count, unflatten
 
 # --------------------------------------------------------------------------
 # Parameter spec tables
@@ -190,7 +196,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False,
 
 
 # --------------------------------------------------------------------------
-# Cache spec tables (prefill-collect)
+# Cache spec tables (decode / prefill-collect)
 # --------------------------------------------------------------------------
 
 def _layer_cache_specs(cfg: ModelConfig, spec, B: int, S: int
@@ -236,6 +242,21 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> Dict[Path, ParamSpec]:
     return flat
 
 
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
+    """Zero caches for B sequences of up to S positions, in
+    ``cache_specs``' shapes and dtypes (every leaf zero: a fresh mLSTM
+    slot starts from m = 0, as in ``repro``), on ``device``: the card
+    unless the caller asks for the CPU; raises without CUDA."""
+    device = resolve_device(device)
+    return unflatten({p: torch.zeros(s.shape, dtype=_dtype(s.dtype),
+                                     device=device)
+                      for p, s in cache_specs(cfg, B, S).items()})
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
@@ -247,25 +268,30 @@ def _tree_map(fn: Callable, tree):
 
 
 def _apply_layer(cfg, spec, lp, x, positions, collect, cache_pad_to,
-                 use_kernel):
+                 use_kernel, cache=None, decode_pos=None):
     mixer, mlp = spec
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mixer in (ATTN, ATTN_LOCAL):
+        c = None
+        if cache is not None:
+            c = attention.KVCache(cache["k"], cache["v"])
+        elif collect:
+            c = "collect"
         y, nc = attention.attention_block(
             cfg, lp["mixer"], x, positions, local=(mixer == ATTN_LOCAL),
-            cache="collect" if collect else None, cache_pad_to=cache_pad_to,
+            cache=c, decode_pos=decode_pos, cache_pad_to=cache_pad_to,
             use_kernel=use_kernel)
         new_cache = {"k": nc.k, "v": nc.v} if nc is not None else {}
     elif mixer == MAMBA:
-        y, nc = ssm.mamba_block(cfg, lp["mixer"], x, None, collect,
+        y, nc = ssm.mamba_block(cfg, lp["mixer"], x, cache, collect,
                                 use_kernel=use_kernel)
         new_cache = nc if nc is not None else {}
     elif mixer == MLSTM:
-        y, nc = xlstm.mlstm_block(cfg, lp["mixer"], x, None, collect,
+        y, nc = xlstm.mlstm_block(cfg, lp["mixer"], x, cache, collect,
                                   use_kernel=use_kernel)
         new_cache = nc if nc is not None else {}
     elif mixer == SLSTM:
-        y, nc = xlstm.slstm_block(cfg, lp["mixer"], x, None, collect)
+        y, nc = xlstm.slstm_block(cfg, lp["mixer"], x, cache, collect)
         new_cache = nc if nc is not None else {}
     else:
         raise ValueError(mixer)
@@ -300,8 +326,9 @@ def _embed(cfg, params, tokens=None, embeds=None, positions=None):
         x = params["embed"]["tok"][tokens].to(cd)
     if cfg.scale_embed:
         # the constant rounded to the compute dtype first, as repro's
-        # jnp.asarray(sqrt(d), cdtype): 33.75, not 33.94, in bf16 at d 1152
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
+        # jnp.asarray(sqrt(d), cdtype): 33.75, not 33.94, in bf16 at d 1152;
+        # a 0-dim host tensor is a scalar to the op, so no copy to the card
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     if cfg.pos_emb == "sinusoidal":
         B, L = x.shape[:2]
         pos = positions if positions.dim() == 2 else positions.expand(B, L)
@@ -348,14 +375,20 @@ def cast_params(cfg: ModelConfig, params):
 
 def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
            collect_cache: bool, cache_pad_to: Optional[int],
-           use_kernel: Optional[bool]):
+           use_kernel: Optional[bool], caches=None, decode_pos=None):
     """Embedding and every layer, on cast parameters: (x before the final
-    norm, caches in ``repro``'s tree layout or None, aux loss)."""
+    norm, caches in ``repro``'s tree layout or None, aux loss).  With
+    ``caches`` each layer continues from its own cache at the per-row
+    positions ``decode_pos`` (B,) and the new caches are returned."""
     ref = tokens if tokens is not None else embeds
     B, L = ref.shape[0], ref.shape[1]
     dev = ref.device
     if positions is None:
-        positions = torch.arange(L, device=dev)[None, :].expand(B, L)
+        if decode_pos is not None:
+            base = decode_pos.to(dev)[:, None]          # (B, 1)
+        else:
+            base = torch.arange(L, device=dev)[None, :]  # (1, L)
+        positions = base.expand(B, L)
         if cfg.mrope:
             positions = positions[None].expand(3, B, L)
 
@@ -367,21 +400,25 @@ def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
 
     for i, spec in enumerate(cfg.prefix):
         key = f"l{i}"
+        c = caches["prefix"][key] if caches is not None else None
         x, nc, a = _apply_layer(cfg, spec, params["prefix"][key], x,
                                 positions, collect_cache, cache_pad_to,
-                                use_kernel)
+                                use_kernel, c, decode_pos)
         new_caches["prefix"][key] = nc
         aux = aux + a
 
     per_iter = []
     for i in range(cfg.n_scan):
         slot_params = _tree_map(lambda leaf: leaf[i], params["scan"])
+        slot_caches = (_tree_map(lambda leaf: leaf[i], caches["scan"])
+                       if caches is not None else None)
         outs = {}
         for j, spec in enumerate(cfg.pattern):
             key = f"s{j}"
+            c = slot_caches[key] if slot_caches is not None else None
             x, nc, a = _apply_layer(cfg, spec, slot_params[key], x,
                                     positions, collect_cache, cache_pad_to,
-                                    use_kernel)
+                                    use_kernel, c, decode_pos)
             outs[key] = nc
             aux = aux + a
         per_iter.append(outs)
@@ -389,19 +426,23 @@ def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
         key: {name: torch.stack([it[key][name] for it in per_iter])
               for name in per_iter[0][key]}
         for key in per_iter[0]}
-    return x, (new_caches if collect_cache else None), aux
+    want_cache = caches is not None or collect_cache
+    return x, (new_caches if want_cache else None), aux
 
 
 def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
-            positions=None, collect_cache: bool = False,
+            positions=None, caches=None, decode_pos=None,
+            collect_cache: bool = False,
             cache_pad_to: Optional[int] = None,
             use_kernel: Optional[bool] = None):
-    """Full-sequence forward from position 0.  Returns (logits,
+    """Full-sequence forward from position 0, or with ``caches`` one
+    decode token per row at ``decode_pos`` (B,).  Returns (logits,
     caches_or_None, aux_loss); ``collect_cache`` returns every layer's
     prefill cache in ``repro``'s tree layout."""
     params = cast_params(cfg, params)
     x, caches, aux = _trunk(cfg, params, tokens, embeds, positions,
-                            collect_cache, cache_pad_to, use_kernel)
+                            collect_cache, cache_pad_to, use_kernel,
+                            caches, decode_pos)
     return _head(cfg, params, x), caches, aux
 
 
@@ -420,3 +461,17 @@ def make_prefill_step(cfg: ModelConfig, pad_to: Optional[int] = None,
                               use_kernel)
         return _head(cfg, params, x[:, -1:])[:, 0], caches
     return prefill
+
+
+def make_decode_step(cfg: ModelConfig, use_kernel: Optional[bool] = None):
+    """One-token decode: ``decode(params, caches, batch, pos) -> (logits
+    (B, 1, V), caches)`` with ``batch["tokens"]`` (B, 1) and ``pos`` (B,)
+    each row's absolute position.  ``params`` must already be cast
+    (``cast_params``, once by the caller, never on each tick); the given
+    caches are not written."""
+    def decode(params, caches, batch, pos):
+        x, caches, _ = _trunk(cfg, params, batch.get("tokens"),
+                              batch.get("embeds"), None, False, None,
+                              use_kernel, caches, pos)
+        return _head(cfg, params, x), caches
+    return decode

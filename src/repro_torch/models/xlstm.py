@@ -1,13 +1,14 @@
-"""xLSTM mixers on the prefill path: mLSTM (matrix memory) and sLSTM
-(scalar memory), the port of ``repro.models.xlstm``.
+"""xLSTM mixers: mLSTM (matrix memory) and sLSTM (scalar memory), the
+port of ``repro.models.xlstm``.
 
 mLSTM has no hidden-to-hidden dependence, so a whole prompt runs in the
 chunkwise-parallel form through ``kernels.mlstm_chunk``: the CUDA kernel
 for tensors on the card (from the zero state, as prefill starts), its
-plain chunkwise version on the CPU or with ``use_kernel=False``.  sLSTM's
-recurrent weights make it sequential: a Python loop over time in plain
-torch (``repro`` has no kernel for it either) that only enqueues device
-work.  The single-token ``mlstm_step`` comes with the decode slice.
+plain chunkwise version on the CPU or with ``use_kernel=False``.  A
+decode token continues a cache through :func:`mlstm_step`, plain torch on
+every device as in ``repro``.  sLSTM's recurrent weights make it
+sequential: a Python loop over time in plain torch (``repro`` has no
+kernel for it either) that only enqueues device work.
 
 Stabilized recurrences (Beck et al. 2024):
     m_t = max(log f_t + m_{t-1}, log i_t)
@@ -26,13 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
-from repro_torch.kernels.mlstm_chunk.ref import NEG
+from repro_torch.kernels.mlstm_chunk.ref import NEG, init_mlstm_state  # noqa: F401
 from repro_torch.models import layers
-
-DECODE_TODO = ("decoding from an mLSTM cache (mlstm_step) comes with the "
-               "decode step (ROADMAP.md, queue 1, item 4: the model plane, "
-               "the rest)")
-
 
 def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
@@ -50,18 +46,44 @@ def _headwise_norm(x: torch.Tensor, gamma: torch.Tensor, n_heads: int,
 
 
 # --------------------------------------------------------------------------
+# mLSTM cell — one decode step
+# --------------------------------------------------------------------------
+
+def mlstm_step(q, k, v, i_raw, f_raw, state):
+    """Single-token decode.  q/k/v: (B, H, Dh); gates (B, H); state
+    (C (B, H, Dh, Dh), n (B, H, Dh), m (B, H)).  Returns h (B, H, Dh) and
+    the new state, in the wider of float32 and q's type."""
+    C0, n0, m0 = state
+    Dh = q.shape[-1]
+    wd = _wide(q.dtype)
+    q = q.to(wd) * (Dh ** -0.5)
+    k, v = k.to(wd), v.to(wd)
+    lf = F.logsigmoid(f_raw.to(wd))
+    m1 = torch.maximum(lf + m0, i_raw)
+    ip = torch.exp(i_raw - m1)
+    fp = torch.exp(lf + m0 - m1)
+    C1 = fp[..., None, None] * C0 + ip[..., None, None] * torch.einsum(
+        "bhv,bhk->bhvk", v, k)
+    n1 = fp[..., None] * n0 + ip[..., None] * k
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, n1)),
+                        torch.exp(-m1))
+    h = torch.einsum("bhk,bhvk->bhv", q, C1) / den[..., None]
+    return h, (C1, n1, m1)
+
+
+# --------------------------------------------------------------------------
 # mLSTM block
 # --------------------------------------------------------------------------
 
 def mlstm_block(cfg, p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
                 collect: bool = False, use_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """xLSTM mLSTM block (projection factor 2, conv4, gated output) over a
-    whole prompt from the zero state; residual added by the caller.
-    ``collect=True`` returns the final (conv, C, n, m) as a fresh cache.
-    ``use_kernel`` goes to ``mlstm_chunkwise``."""
-    if cache is not None and "C" in cache:
-        raise NotImplementedError(DECODE_TODO)
+    """xLSTM mLSTM block (projection factor 2, conv4, gated output);
+    residual added by the caller.  With a cache holding (conv, C, n, m) it
+    decodes one token through :func:`mlstm_step` from that state in
+    float32; otherwise the whole prompt runs from the zero state through
+    ``mlstm_chunkwise`` (``use_kernel`` goes there).  ``collect=True`` (or
+    a cache) returns the final (conv, C, n, m) as the new cache."""
     B, L, D = x.shape
     Di = int(cfg.mlstm_proj_factor * D)
     H = cfg.n_heads
@@ -83,9 +105,16 @@ def mlstm_block(cfg, p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
     wd = _wide(gif.dtype)
     i_raw = gif[..., :H].transpose(1, 2).to(wd)
     f_raw = gif[..., H:].transpose(1, 2).to(wd)
-    hh, (C1, n1, m1) = mlstm_chunkwise(q, k, v, i_raw, f_raw,
-                                       chunk=cfg.mlstm_chunk,
-                                       use_kernel=use_kernel)
+    if cache is not None and "C" in cache:
+        cw = _wide(cache["C"].dtype)
+        state = (cache["C"].to(cw), cache["n"].to(cw), cache["m"].to(cw))
+        hh, (C1, n1, m1) = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                      i_raw[:, :, 0], f_raw[:, :, 0], state)
+        hh = hh[:, :, None, :]
+    else:
+        hh, (C1, n1, m1) = mlstm_chunkwise(q, k, v, i_raw, f_raw,
+                                           chunk=cfg.mlstm_chunk,
+                                           use_kernel=use_kernel)
 
     hh = hh.transpose(1, 2).reshape(B, L, Di).to(x.dtype)
     hh = _headwise_norm(hh, p["head_norm"], H, cfg.norm_eps)

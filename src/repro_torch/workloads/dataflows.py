@@ -16,8 +16,10 @@ end-to-end ingest→sink latency:
   a :class:`~repro_torch.core.windows.WindowStore`; windowed
   sum/mean/max/min ride the ``window_agg`` kernel via
   :meth:`WindowedStats.aggregates`.
-* **PRED** needs the serving bridge and the model plane, which are not
-  ported yet: :func:`build_pred` raises.
+* **PRED** — a feature composite feeding a *model-backed* stream; the
+  serving bridge turns its emissions into LM requests and posts scores
+  back on the response stream (stamp-preserving, so PRED latency
+  includes decode time), where a decision composite consumes them.
 """
 from __future__ import annotations
 
@@ -34,12 +36,15 @@ from repro_torch.core.windows import (WindowStore, aggregate,
 @dataclasses.dataclass
 class Dataflow:
     """One tenant's installed pipeline: feed ``source``, measure at
-    ``sink``."""
-    kind: str                   # "etl" | "stats"
+    ``sink`` (for PRED the sink is the decision stage downstream of the
+    serving response, so its latency spans the full loop)."""
+    kind: str                   # "etl" | "stats" | "pred"
     tenant: object              # registry Tenant
     source: object              # device-fed Stream the trace posts into
     stages: List[object]        # all composite Streams, source-to-sink
     sink: object                # terminal Stream carrying e2e latency
+    model: Optional[object] = None      # PRED: the model-backed Stream
+    response: Optional[object] = None   # PRED: the bridge response Stream
 
     @property
     def sink_sid(self) -> int:
@@ -82,12 +87,22 @@ def build_stats(reg, tenant, prefix: str = "stats") -> Dataflow:
 
 
 def build_pred(reg, tenant, prefix: str = "pred") -> Dataflow:
-    """Feature composite → model-backed stream → response → decision: not
-    ported, since its response path is the serving bridge."""
-    raise NotImplementedError(
-        "PRED flows need the serving bridge (ROADMAP.md, queue 1, item 5: "
-        "the serving bridge and PRED flows), which serves through the "
-        "model plane's decode step (item 4: the model plane, the rest)")
+    """Feature composite → model-backed stream → response → decision.
+
+    The model-backed stream and its response must be wired onto a
+    serving bridge after engine creation: ``bridge.route(flow.model,
+    flow.response)`` (:func:`repro_torch.workloads.runner.wire_pred`)."""
+    raw = reg.create_stream(tenant, f"{prefix}.raw", ["v"])
+    feat = reg.create_composite(
+        tenant, f"{prefix}.feat", ["v"], [raw], {"v": "in0.v * 0.05"})
+    model = reg.create_composite(
+        tenant, f"{prefix}.model", ["req"], [feat], {}, model_backed=True)
+    resp = reg.create_stream(tenant, f"{prefix}.resp", ["score"])
+    decide = reg.create_composite(
+        tenant, f"{prefix}.decide", ["hit"], [resp],
+        {"hit": "in0.score > 0.5 ? 1.0 : 0.0"})
+    return Dataflow("pred", tenant, raw, [feat, model, decide], decide,
+                    model=model, response=resp)
 
 
 class WindowedStats:

@@ -1,21 +1,19 @@
 """Suite assembly and drive loop for the IoT workloads — the PyTorch port
 of the JAX package's ``repro.workloads.runner``.
 
-``build_suite`` wires N tenants — each running one ETL or STATS dataflow
-— onto a single engine with one replayable
+``build_suite`` wires N tenants — each running one ETL, STATS or PRED
+dataflow — onto a single engine with one replayable
 :class:`~repro_torch.workloads.traces.SensorTrace` device per tenant, and
 ``drive`` replays the trace through supersteps while folding every
 *terminal-sink* emission into an :class:`~repro_torch.core.slo.SLOTracker`
-and every STATS emission into the window store.
+and every STATS emission into the window store, and pumping PRED
+emissions through the serving bridge (``wire_pred``).
 
 Latency semantics: the engine's sink spool carries every external
 emission, including intermediate pipeline stages (parse, filter, ...).
 End-to-end latency is the terminal stage's, so the runner filters
 latency records to each flow's ``sink_sid`` before the tracker sees them
 (:func:`sink_records`).
-
-Not ported yet, and raising ``NotImplementedError``: PRED flows and their
-serving bridge (``wire_pred``).
 """
 from __future__ import annotations
 
@@ -27,12 +25,13 @@ import numpy as np
 from repro_torch.core import EngineConfig, Registry, create_engine
 from repro_torch.core.slo import SLOTracker
 from repro_torch.workloads.dataflows import (Dataflow, WindowedStats,
-                                             build_etl, build_stats)
+                                             build_etl, build_pred,
+                                             build_stats)
 from repro_torch.workloads.traces import SensorTrace, TraceConfig
 
-# registry rows a flow of each kind consumes (source + stages)
-_SIDS_PER_KIND = {"etl": 5, "stats": 2}
-_BUILDERS = {"etl": build_etl, "stats": build_stats}
+# registry rows a flow of each kind consumes (source + stages [+ response])
+_SIDS_PER_KIND = {"etl": 5, "stats": 2, "pred": 5}
+_BUILDERS = {"etl": build_etl, "stats": build_stats, "pred": build_pred}
 
 
 @dataclasses.dataclass
@@ -45,6 +44,7 @@ class IoTSuite:
     trace: SensorTrace
     slo: SLOTracker
     stats: Optional[WindowedStats]          # fed from STATS sinks only
+    bridge: object = None                   # serving bridge for PRED flows
 
     @property
     def sink_sids(self) -> np.ndarray:
@@ -60,7 +60,7 @@ def sink_records(records: Dict[str, np.ndarray],
 
 
 def build_suite(n_tenants: int = 12, *,
-                kinds: Sequence[str] = ("etl", "stats"),
+                kinds: Sequence[str] = ("etl", "stats", "pred"),
                 n_shards: int = 1,
                 trace: Optional[TraceConfig] = None,
                 slo_rounds: Optional[int] = 16,
@@ -77,11 +77,6 @@ def build_suite(n_tenants: int = 12, *,
     fused/staged round path (None = config default).  ``use_kernel`` goes
     to the engine and the window plane (``False``: the kernels' plain
     versions on any device)."""
-    if "pred" in kinds:
-        raise NotImplementedError(
-            "PRED flows need the serving bridge (ROADMAP.md, queue 1, item "
-            "5: the serving bridge and PRED flows), which serves through the "
-            "model plane's decode step (item 4: the model plane, the rest)")
     kinds = [kinds[i % len(kinds)] for i in range(n_tenants)]
     n_streams = sum(_SIDS_PER_KIND[k] for k in kinds) + 2
     n_streams = -(-n_streams // n_shards) * n_shards   # pad to shard multiple
@@ -114,10 +109,27 @@ def build_suite(n_tenants: int = 12, *,
 
 def wire_pred(suite: IoTSuite, batcher, *, watermark: Optional[int] = None,
               prompt_len: int = 4):
-    """Attach a serving bridge for PRED flows: not ported yet."""
-    raise NotImplementedError(
-        "the serving bridge is not ported yet (ROADMAP.md, queue 1, "
-        "item 5: the serving bridge and PRED flows)")
+    """Attach a serving bridge for the suite's PRED flows.  ``batcher``
+    is a :class:`repro_torch.serving.ContinuousBatcher` (or any object
+    with its ``submit``/``run_ticks``/``cfg.vocab`` surface — tests pass a
+    stub).  Returns the bridge (also stored on the suite)."""
+    from repro_torch.serving.bridge import ModelBackedStreams
+    bridge = ModelBackedStreams(suite.engine, batcher, watermark)
+    for f in suite.flows:
+        if f.kind == "pred":
+            bridge.route(f.model, f.response, prompt_len)
+    suite.bridge = bridge
+    return bridge
+
+
+def _pump(suite: IoTSuite, spool, ts: int) -> None:
+    """The serving bridge's turn after a superstep: re-try deferred
+    emissions, submit the spool's model-backed emissions, decode until
+    the batcher is idle and post the completions back."""
+    if suite.bridge is not None:
+        suite.bridge.release_deferred()
+        suite.bridge.pump_spool(spool, ts=ts)
+        suite.bridge.drain(ts=ts)
 
 
 def _observe(suite: IoTSuite, sinks, sink_sids) -> int:
@@ -130,9 +142,12 @@ def drive(suite: IoTSuite, K: int = 4, *, scaler=None,
           stats_sids: Optional[np.ndarray] = None) -> Dict:
     """Replay the suite's trace: each trace round posts its emissions,
     runs one K-round superstep, folds terminal-sink latency records into
-    the SLO tracker and pushes STATS emissions into the window store;
-    four more supersteps let in-flight SUs reach their sinks.  Each
-    superstep's spool is read back once.  ``scaler`` (a
+    the SLO tracker, pushes STATS emissions into the window store and
+    pumps the serving bridge (stamp-preserving, so PRED completions land
+    in later supersteps with their original ingest round); four more
+    supersteps let in-flight SUs and PRED responses reach their sinks.
+    With a bridge each superstep's spool is read back twice (the sinks,
+    then the bridge's pump), else once.  ``scaler`` (a
     :class:`repro_torch.launch.autoscale.Autoscaler`) observes every
     trace superstep's boundary.  Returns ``{"records": n, "slo_report":
     ..., "aggregates": ...}`` (aggregates as host arrays)."""
@@ -145,18 +160,21 @@ def drive(suite: IoTSuite, K: int = 4, *, scaler=None,
     for k, dev, vals in suite.trace.steps():
         for d, v in zip(dev, vals):
             eng.post(suite.flows[d].source, [float(v)], ts=k + 1)
-        sinks = eng.spool_sinks(eng.superstep(K))
+        spool = eng.superstep(K)
+        sinks = eng.spool_sinks(spool)
         n_obs += _observe(suite, sinks, sink_sids)
         if suite.stats is not None and stats_sids.size:
             suite.stats.push_sinks([
                 s._replace(valid=np.isin(s.sid, stats_sids) & s.valid)
                 for s in sinks])
+        _pump(suite, spool, 1000 + k)
         if scaler is not None:
             scaler.observe()
-    # let in-flight SUs reach their sinks
-    for _ in range(4):
-        n_obs += _observe(suite, eng.spool_sinks(eng.superstep(K)),
-                          sink_sids)
+    # let in-flight SUs (and PRED responses) reach their sinks
+    for k in range(4):
+        spool = eng.superstep(K)
+        n_obs += _observe(suite, eng.spool_sinks(spool), sink_sids)
+        _pump(suite, spool, 2000 + k)
     return {
         "records": n_obs,
         "slo_report": suite.slo.slo_report(),

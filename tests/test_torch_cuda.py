@@ -969,3 +969,113 @@ def test_supervised_drill_on_the_card_equals_the_cpu(dev, tmp_path):
     for k in xa:
         np.testing.assert_array_equal(_bits(xa[k]), _bits(xb[k]), err_msg=k)
     assert got.fault_counters()["quarantined"].any()
+
+
+# ------------------------------------------------------------------ serving
+@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
+def test_smoke_decode_on_the_card_equals_the_cpu(dev, arch):
+    """The SMOKE model's decode step (float32) on the card against the
+    CPU from the same prefill caches: logits and every returned cache
+    leaf; a Mamba layer launches the selective-scan kernel once a step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_call
+    from repro_torch.models.config import MAMBA
+    from repro_torch.models.model import (make_decode_step,
+                                          make_prefill_step, param_specs)
+    from repro_torch.models.params import init_params
+    cfg = get_smoke(arch)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)))
+    _, caches = make_prefill_step(cfg, pad_to=48)(params,
+                                                  {"tokens": tok[:, :-1]})
+    pos = torch.full((2,), 39, dtype=torch.int32)
+    step = make_decode_step(cfg)
+    want = step(params, caches, {"tokens": tok[:, -1:]}, pos)
+    selective_scan_call.launches = 0
+    got = step(_tree(lambda t: t.to(dev), params),
+               _tree(lambda t: t.to(dev), caches),
+               {"tokens": tok[:, -1:].to(dev)}, pos.to(dev))
+    torch.cuda.synchronize()
+    assert selective_scan_call.launches == sum(
+        m == MAMBA for m, _ in cfg.layer_specs)
+    for g, w in zip(_flat({"l": got[0], "c": got[1]}),
+                    _flat({"l": want[0], "c": want[1]})):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
+
+
+def _record_gaps(b):
+    """Wrap batcher ``b``'s step to record the top-2 logit gap of every
+    slot that emits a token at the tick."""
+    gaps, inner = [], b._step
+
+    def step():
+        lg = inner()
+        for s, req in enumerate(b.live):
+            if req is not None and not b._pending_prompt.get(s):
+                top = np.sort(lg[s])[-2:]
+                gaps.append(float(top[1] - top[0]))
+        return lg
+    b._step = step
+    return gaps
+
+
+def _serve_smoke(device, n_req=5):
+    """gemma3-1b SMOKE (float32) on 2 slots: {rid: tokens} and the
+    smallest top-2 logit gap of every emitted token."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import ContinuousBatcher, Request
+    cfg = get_smoke("gemma3-1b")
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(2),
+                         "cpu")
+    b = ContinuousBatcher(cfg, params, slots=2, max_len=64, device=device)
+    gaps = _record_gaps(b)
+    for i in range(n_req):
+        b.submit(Request(rid=i, prompt=[3 + i, 40 + i], max_tokens=3 + i))
+    return {r.rid: r.output for r in b.run_until_drained()}, min(gaps), b
+
+
+def test_batcher_on_the_card_equals_the_cpu(dev):
+    """The batcher's tokens on the card (its tick's tokens and positions
+    in one pinned copy, the logits in one readback) equal the CPU's on a
+    well-posed run (greedy tokens are exact only without ties)."""
+    want, gap, _ = _serve_smoke("cpu")
+    assert gap > 1e-4, f"top-2 gap {gap}"
+    got, _, b = _serve_smoke(dev)
+    assert got == want and sorted(got) == list(range(5))
+    assert b.caches["scan"]["s0"]["k"].device == dev
+
+
+def test_pred_suite_on_the_card_equals_the_cpu(dev):
+    """A small IoT suite with PRED flows served by a gemma3-1b SMOKE
+    batcher: the engine and the batcher on the card equal both on the CPU
+    (records, SLO report and histograms, completions, engine counters)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import ContinuousBatcher
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    from repro_torch.workloads import wire_pred
+    cfg = get_smoke("gemma3-1b")
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(4),
+                         "cpu")
+    runs = []
+    for device in ("cpu", dev):
+        suite = build_suite(6, trace=TraceConfig(n_devices=6, rounds=6,
+                                                 seed=4),
+                            cfg_overrides={"superstep": 3}, device=device)
+        b = ContinuousBatcher(cfg, params, slots=2, max_len=64,
+                              device=device)
+        gaps = _record_gaps(b)
+        wire_pred(suite, b)
+        out = drive(suite, 3)
+        assert min(gaps) > 1e-4, f"top-2 gap {min(gaps)}"
+        runs.append((out["records"], out["slo_report"],
+                     suite.slo.hist.tolist(),
+                     [(r.rid, r.output) for r in suite.bridge.completed],
+                     suite.engine.counters()))
+    assert runs[1] == runs[0] and runs[0][3]

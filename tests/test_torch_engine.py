@@ -274,12 +274,34 @@ def test_engine_defaults_to_cuda_and_refuses_the_cpu_silently():
 
 
 def test_unported_planes_raise():
-    """The serving bridge still raises; the sharded snapshot, which raised
-    until the durability plane was ported, restores into an engine of the
-    same layout."""
-    from repro_torch.workloads import build_suite
-    with pytest.raises(NotImplementedError, match="serving bridge"):
-        build_suite(2, kinds=("pred",), device="cpu")
+    """PRED flows (raising until the serving slice) build on the engine,
+    each with its model-backed stream and response; the sharded snapshot,
+    which raised until the durability plane was ported, restores into an
+    engine of the same layout."""
+    from types import SimpleNamespace
+
+    from repro_torch.workloads import TraceConfig, build_suite, drive
+    from repro_torch.workloads import wire_pred
+    suite = build_suite(2, kinds=("pred",), device="cpu",
+                        trace=TraceConfig(n_devices=2, rounds=4,
+                                          base_rate=1.0))
+    assert [f.kind for f in suite.flows] == ["pred", "pred"]
+    mb = suite.engine.tables.model_backed.cpu().numpy()
+    assert sorted(np.nonzero(mb)[0].tolist()) == sorted(
+        f.model.sid for f in suite.flows)
+    queue = []                      # a stub batcher: echo every prompt
+
+    def run_ticks(n):
+        done = queue[:]
+        queue.clear()
+        for r in done:
+            r.output = list(r.prompt)
+        return done
+    bridge = wire_pred(suite, SimpleNamespace(
+        cfg=SimpleNamespace(vocab=64), submit=queue.append,
+        run_ticks=run_ticks))
+    assert drive(suite)["records"] > 0
+    assert len(bridge.completed) >= 4 and not bridge.inflight
     sharded = P.Registry(P.EngineConfig(n_streams=4, batch=2, queue=4,
                                         n_shards=2))
     eng = P.create_engine(sharded, device="cpu")

@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.kernels.mlstm_chunk.kernel",
               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
               "repro_torch.launch", "repro_torch.launch.autoscale",
-              "repro_torch.launch.chaos", "repro_torch.launch.supervise"):
+              "repro_torch.launch.chaos", "repro_torch.launch.supervise",
+              "repro_torch.serving", "repro_torch.serving.batcher",
+              "repro_torch.serving.bridge", "repro_torch.launch.serve"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -10,7 +10,8 @@ mLSTM (conv, C, n, m) and sLSTM (conv, h, c, n, m) states) must match at
 the full published configurations equal ``repro``'s, ``cast_params``
 gives every leaf ``repro``'s dtype in bf16 (stacked vectors cast, prefix
 vectors kept float32), the registry and the configurations equal
-``repro``'s, and the mLSTM decode step raises until its slice lands."""
+``repro``'s, and the mLSTM block continues from its own prefill cache
+as ``repro``'s does."""
 import dataclasses
 
 import numpy as np
@@ -130,17 +131,31 @@ def test_registry_and_configs_match_repro():
 
 
 def test_mlstm_decode_step_raises_until_its_slice():
-    """A prefill's mLSTM cache cannot be continued yet: ``mlstm_step``
-    comes with the decode slice, and the block says so."""
+    """A prefill's mLSTM cache continues: ``mlstm_block`` decodes one
+    token from its own prefill cache through ``mlstm_step`` (it raised
+    until the decode slice) and equals ``repro``'s block on that cache."""
+    from repro.models import xlstm as JX
     from repro_torch.models import xlstm
-    cfg = ModelConfig(**dataclasses.asdict(JC.get_smoke("xlstm-1.3b")))
-    params = JM.init_params(JM.param_specs(JC.get_smoke("xlstm-1.3b")),
-                            jax.random.PRNGKey(3))
-    p = params_from_numpy(jax.tree.map(lambda a: np.asarray(a[0]),
-                                       params["scan"]["s1"]["mixer"]))
-    x = torch.zeros((1, 4, cfg.d_model))
-    _, cache = xlstm.mlstm_block(cfg, p, x, collect=True)
+    jcfg = JC.get_smoke("xlstm-1.3b")
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    params = JM.init_params(JM.param_specs(jcfg), jax.random.PRNGKey(3))
+    jp = jax.tree.map(lambda a: np.asarray(a[0]),
+                      params["scan"]["s1"]["mixer"])
+    p = params_from_numpy(jp)
+    x = np.random.default_rng(4).standard_normal(
+        (2, 5, cfg.d_model)).astype(np.float32)
+    _, cache = xlstm.mlstm_block(cfg, p, torch.from_numpy(x[:, :4]),
+                                 collect=True)
     assert {p[2] for p in PM.cache_specs(cfg, 1, 4) if p[1] == "s1"} == \
         set(cache)
-    with pytest.raises(NotImplementedError, match="decode step"):
-        xlstm.mlstm_block(cfg, p, x[:, :1], cache)
+    y, new = xlstm.mlstm_block(cfg, p, torch.from_numpy(x[:, 4:]), cache)
+    jc = jax.tree.map(jnp.asarray, caches_to_numpy(cache))
+    wy, wnew = JX.mlstm_block(jcfg, jax.tree.map(jnp.asarray, jp),
+                              jnp.asarray(x[:, 4:]), jc)
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), rtol=1e-4,
+                               atol=1e-4)
+    assert set(new) == set(wnew)
+    for k in wnew:
+        np.testing.assert_allclose(caches_to_numpy(new)[k],
+                                   np.asarray(wnew[k]), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)

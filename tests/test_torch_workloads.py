@@ -1,14 +1,21 @@
 """The port's IoT workload suite (ETL + STATS through supersteps) against
 the JAX package's, bitwise: per-superstep latency records, the SLO
 histograms and report, the engine's counters and the window aggregates,
-on both round paths at K in {1, 3}.  Also the latency plane's pin (sink
+on both round paths at K in {1, 3}.  PRED flows served through the
+bridge by a gemma3-1b SMOKE batcher (float32) at 1 and 2 shards: the
+records, SLO histograms and report, completions, response SUs and every
+state leaf equal ``repro``'s.  Also the latency plane's pin (sink
 records carry global emission rounds), the copied trace and SLO tracker,
-and the planes that are not ported yet raising."""
+and PRED flows building, wiring and driving with a stub batcher."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+
+import jax  # noqa: E402
 
 import repro.workloads as JWL  # noqa: E402
 import repro_torch.workloads as PWL  # noqa: E402
@@ -16,9 +23,15 @@ from repro.core import EngineConfig as JCfg, Registry as JReg  # noqa: E402
 from repro.core import create_engine as j_create  # noqa: E402
 from repro.core.slo import SLOTracker as JSLO  # noqa: E402
 from repro.core.slo import weights_from_slo as j_weights  # noqa: E402
+from repro import configs as JC  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.serving import ContinuousBatcher as JBatcher  # noqa: E402
 from repro.workloads.runner import sink_records as j_sink_records  # noqa: E402
 from repro_torch.core import EngineConfig, Registry, create_engine  # noqa: E402
+from repro_torch import configs as PC  # noqa: E402
 from repro_torch.core.slo import SLOTracker, weights_from_slo  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serving import ContinuousBatcher as PBatcher  # noqa: E402
 from repro_torch.workloads.runner import sink_records, wire_pred  # noqa: E402
 
 PATHS = pytest.mark.parametrize("fused", [True, False],
@@ -182,9 +195,41 @@ def test_trace_and_slo_tracker_match_jax():
                                   weights_from_slo(tp, boost=5))
 
 
+class _StubBatcher:
+    """The batcher surface ``wire_pred`` and ``drive`` touch: every
+    request completes at the next ``run_ticks`` with its prompt echoed."""
+
+    class cfg:
+        vocab = 64
+
+    def __init__(self):
+        self.queue = []
+
+    def submit(self, req):
+        self.queue.append(req)
+
+    def run_ticks(self, n):
+        done, self.queue = self.queue, []
+        for r in done:
+            r.output, r.done = list(r.prompt), True
+        return done
+
+
 def test_unported_workload_planes_raise():
-    with pytest.raises(NotImplementedError, match="serving bridge"):
-        PWL.build_suite(3, kinds=("etl", "pred"), device="cpu")
+    """PRED flows (raising until the serving slice) build, wire and
+    drive; the autoscaler observes every trace superstep's boundary."""
+    pred = PWL.build_suite(3, kinds=("etl", "pred"),
+                           trace=PWL.TraceConfig(n_devices=3, rounds=6,
+                                                 seed=3, base_rate=0.9),
+                           device="cpu")
+    assert [f.kind for f in pred.flows] == ["etl", "pred", "etl"]
+    bridge = wire_pred(pred, _StubBatcher())
+    assert pred.bridge is bridge
+    assert set(bridge.routes) == {pred.flows[1].model.sid}
+    out = PWL.drive(pred)
+    assert out["records"] > 0 and bridge.completed and not bridge.inflight
+    resp = pred.flows[1].response
+    assert pred.engine.ts_of(resp) > 0          # a completion posted back
     suite = PWL.build_suite(2, trace=PWL.TraceConfig(n_devices=2, rounds=1),
                             device="cpu")
     # the autoscaler (raising until the elastic plane was ported) observes
@@ -193,7 +238,87 @@ def test_unported_workload_planes_raise():
     scaler = Autoscaler(suite.engine, min_shards=1, max_shards=1)
     PWL.drive(suite, scaler=scaler)
     assert scaler._steps == 1 and scaler.events == []
-    with pytest.raises(NotImplementedError, match="serving bridge"):
-        wire_pred(suite, batcher=None)
-    with pytest.raises(NotImplementedError, match="serving bridge"):
-        PWL.build_pred(suite.registry, suite.registry.tenants[0])
+    reg = Registry(EngineConfig(n_streams=8))
+    flow = PWL.build_pred(reg, reg.create_tenant("t"))
+    assert flow.kind == "pred" and flow.model.model_backed
+    assert flow.sink.inputs == [flow.response.sid]
+
+
+# --------------------------------------------------------------------------
+# PRED flows through a real batcher, both packages
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pred_model():
+    """gemma3-1b SMOKE (vocab 128) weights in both packages and one
+    jitted ``repro`` decode shared by its batchers."""
+    jcfg = dataclasses.replace(JC.get_smoke("gemma3-1b"), vocab=128)
+    pcfg = dataclasses.replace(PC.get_smoke("gemma3-1b"), vocab=128)
+    jp = JM.init_params(JM.param_specs(jcfg), jax.random.PRNGKey(3))
+    return (jcfg, pcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp)),
+            jax.jit(JM.make_decode_step(jcfg)))
+
+
+def _gap_recording(batcher, jdecode, gaps):
+    """``jdecode`` recording the top-2 logit gap of every slot that emits
+    a token at the tick (greedy tokens are exact only without ties)."""
+    def decode(params, caches, batch, pos):
+        logits, caches = jdecode(params, caches, batch, pos)
+        lg = np.asarray(logits[:, 0], np.float32)
+        pending = getattr(batcher, "_pending_prompt", {})
+        for s, req in enumerate(batcher.live):
+            if req is not None and not pending.get(s):
+                top = np.sort(lg[s])[-2:]
+                gaps.append(float(top[1] - top[0]))
+        return logits, caches
+    return decode
+
+
+def _pred_suite(pkg, n_shards, pred_model, gaps=None):
+    jcfg, pcfg, jp, pp, jdecode = pred_model
+    if pkg is JWL:
+        batcher = JBatcher(jcfg, jp, slots=2, max_len=64)
+        batcher._decode = _gap_recording(batcher, jdecode, gaps)
+        wire = JWL.runner.wire_pred
+    else:
+        batcher = PBatcher(pcfg, pp, slots=2, max_len=64, device="cpu")
+        wire = wire_pred
+    suite = pkg.build_suite(
+        6, n_shards=n_shards,
+        trace=pkg.TraceConfig(n_devices=6, rounds=6, seed=4),
+        cfg_overrides={"superstep": 3},
+        **({"device": "cpu"} if pkg is PWL else {}))
+    wire(suite, batcher)
+    return suite, pkg.drive(suite, 3)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_pred_suite_matches_repro(n_shards, pred_model):
+    gaps = []
+    sj, rj = _pred_suite(JWL, n_shards, pred_model, gaps)
+    assert gaps and min(gaps) > 1e-4, f"reference top-2 gap {min(gaps)}"
+    sp, rp = _pred_suite(PWL, n_shards, pred_model)
+    assert [f.kind for f in sp.flows] == ["etl", "stats", "pred"] * 2
+    assert rp["records"] == rj["records"] > 0
+    assert rp["slo_report"] == rj["slo_report"]
+    np.testing.assert_array_equal(sp.slo.hist, sj.slo.hist)
+    np.testing.assert_array_equal(sp.slo.violations, sj.slo.violations)
+    for k in rj["aggregates"]:
+        np.testing.assert_array_equal(_bits(rp["aggregates"][k]),
+                                      _bits(rj["aggregates"][k]), err_msg=k)
+    done_j = [(r.rid, [int(t) for t in r.prompt], r.output)
+              for r in sj.bridge.completed]
+    done_p = [(r.rid, [int(t) for t in r.prompt], r.output)
+              for r in sp.bridge.completed]
+    assert done_p == done_j and len(done_p) > 1
+    assert sp.bridge.batcher.ticks == sj.bridge.batcher.ticks
+    assert sp.engine.counters() == sj.engine.counters()
+    for f in sj.engine.state._fields:
+        if f != "stats":
+            np.testing.assert_array_equal(
+                _bits(getattr(sp.engine.state, f)),
+                _bits(getattr(sj.engine.state, f)), err_msg=f)
+    for f in (f for f in sp.flows if f.kind == "pred"):
+        np.testing.assert_array_equal(_bits(sp.engine.value_of(f.response)),
+                                      _bits(sj.engine.value_of(f.response)))
+        assert sp.engine.ts_of(f.response) == sj.engine.ts_of(f.response) > 0
