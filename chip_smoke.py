@@ -16,7 +16,9 @@ Phases, each printed on its own line:
    -sass``; none fails the run), and the same for each kernel of
    ``mlstm_chunkwise`` (every one of its six product kernels, the state,
    intra and out kernels for float32 and for bf16 inputs, must have HGMMA
-   instructions).
+   instructions), and for each template of ``selective_scan`` (the ring
+   per S; the register path per S and states a thread) its registers,
+   spills and dynamic shared memory.
 2. Hold each kernel bit for bit against its plain torch version on the
    card: ``sched_pop`` at Q=2048, B=64, C=4 (also at 1,024 tenants and at
    Q=2049), ``fused_round`` at the
@@ -51,7 +53,8 @@ Phases, each printed on its own line:
    odd shapes (valid events with out-of-range sids, entries below -1 and
    at or past the timestamps, INT32_MIN/MAX timestamps).  Also
    ``selective_scan`` at jamba's decode shape (B 4, L 1, Di 8,192, S 16,
-   a non-zero carried state) within 1e-4, timed beside its plain version.
+   a non-zero carried state) within 1e-4, timed beside its plain version,
+   with its plan and its share of the bound by events and the profiler.
 3. Drive the fused main path (``StreamEngine.round``) at the default
    ``EngineConfig`` widths with 4,096 streams for 48 rounds, once through
    the kernels and once through their plain versions; every state leaf,
@@ -137,8 +140,12 @@ Phases, each printed on its own line:
     full-width layers in the model's (B, L, H, Dh) layout (gemma3-1b's
     local and global, jamba's), within 2e-5 in float32 and one bf16 unit
     in the last place (2^-7 of |plain| + 1e-5) in bf16;
-    ``selective_scan`` on its sweep, odd shapes and jamba's Mamba layer
-    (B 1, L 4096, Di 8192, S 16), within 1e-4.
+    ``selective_scan`` on its sweep, odd shapes, jamba's Mamba layer
+    (B 1, L 4096, Di 8192, S 16) and rows of 2 KB (B 2, Di 8,200), then
+    B 4 with a carried state at L 1, 2, T - 1, T, T + 1 and 300 (T the
+    ring's steps a chunk) for every S, Di 333, and on views one float into
+    their buffers, within 1e-4; the sweep must reach the ring path and
+    the register path with four and with one state a thread.
 15-16. ``make_prefill_step`` (``repro_torch.models``) of gemma3-1b at its
     published size (26 layers, B 2) and of jamba-v0.1-52b at full width
     and one period of 8 of its 32 layers (B 1; all 32 exceed the card's
@@ -161,7 +168,9 @@ Phases, each printed on its own line:
     bytes) and, for attention, ``scaled_dot_product_attention``:
     attention in bf16 at all three full-width layers, with its achieved
     TFLOP/s on the 4 B H pairs Dh operations the function needs; also
-    attention's float32 time at jamba's layer.
+    attention's float32 time at jamba's layer; the scan at jamba's
+    Mamba layer with its plan (path, template, CTAs) and its share of
+    the bound by events and by the profiler.
 18. ``mlstm_chunkwise`` (G1) against its plain chunkwise version and the
     float64 sequential oracle, both within 3e-4 + 3e-4 |ref|
     (``tests/test_kernels.py``), on the sweep of ``tests/test_kernels.py``,
@@ -539,6 +548,51 @@ def ptxas_sass_report(stem, lib, key_of) -> dict:
         key = key_of(body.split("\n", 1)[0])
         if key:
             report.setdefault(key, {})["hgmma"] = body.count("HGMMA")
+    return report
+
+
+SCAN_KERNEL = re.compile(
+    r"selective_scan_(ring|register)_kernelILi(\d+)E(?:Li(\d+)E)?")
+
+
+def scan_build_report(lib) -> dict:
+    """Phase 1 for ``selective_scan``: each template (the ring per S, four
+    states a thread; the register path per S and states a thread) with
+    ptxas's registers, stack and spills and a CTA's dynamic shared bytes
+    (the ring's at both row widths its plan takes).  Fails unless every
+    template the plan can choose is in the build."""
+    from repro_torch.kernels.selective_scan.kernel import (
+        RING_FLOATS, STATES, ring_smem_bytes)
+
+    def key_of(text):
+        m = SCAN_KERNEL.search(text)
+        if not m:
+            return None
+        return (f"ring<S {m.group(2)}, 4 states>" if m.group(1) == "ring"
+                else f"register<S {m.group(2)}, {m.group(3)} states>")
+
+    report = ptxas_sass_report("selective_scan", lib, key_of)
+    want = {f"ring<S {S}, 4 states>" for S in STATES if S >= 4} | \
+        {f"register<S {S}, {v} states>" for S in STATES for v in (1, 4)
+         if v <= S and (v == 1 or S >= 4)}
+    if not want <= set(report):
+        fail(f"selective_scan: templates {sorted(want - set(report))} "
+             f"missing from the build; got {sorted(report)}")
+    for key, r in sorted(report.items()):
+        S = int(re.search(r"S (\d+)", key).group(1))
+        r["smem_bytes"] = ({RING_FLOATS // S: ring_smem_bytes(S, RING_FLOATS // S),
+                            RING_FLOATS // S // 2:
+                                ring_smem_bytes(S, RING_FLOATS // S // 2)}
+                           if key.startswith("ring") else 0)
+        smem = (", ".join(f"{b} at {c} channels a CTA"
+                          for c, b in r["smem_bytes"].items())
+                if key.startswith("ring") else "0")
+        print(f"[build] selective_scan {key}: "
+              f"{r.get('registers', 'not in the log')} registers, "
+              f"{r.get('stack_bytes', '?')} bytes stack, "
+              f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} bytes "
+              f"spilled (stores/loads), dynamic shared bytes {smem}",
+              flush=True)
     return report
 
 
@@ -2342,7 +2396,23 @@ FA_FULL = (("gemma3-1b local", 2, 4, 1, PROMPT, 256, 512),
            ("jamba-v0.1-52b", 1, 32, 8, PROMPT, 128, None))
 SCAN_SWEEP = ((1, 16, 32, 8), (2, 64, 128, 16), (1, 128, 256, 16),  # :103
               (2, 37, 40, 4), (1, 300, 96, 32),  # odd lengths, other S
-              (1, PROMPT, 8192, 16))             # jamba's Mamba layer
+              (1, PROMPT, 8192, 16),             # jamba's Mamba layer
+              (2, 33, 8200, 16))                 # 2 KB ring rows
+
+
+def scan_sweep():
+    """SCAN_SWEEP, then both paths and both templates: B 4 with a carried
+    state, L around one ring chunk of T steps and long, every S, Di 333
+    (no multiple of any CTA's channels)."""
+    from repro_torch.kernels.selective_scan.kernel import RING_STEPS as T
+    return SCAN_SWEEP + tuple((4, L, 333, S)
+                              for L in (1, 2, T - 1, T, T + 1, 300)
+                              for S in (1, 2, 4, 8, 16, 32))
+
+
+# on views one float into their buffers: the one-state template
+SCAN_UNALIGNED = ((4, 1, 8192, 16), (4, 300, 333, 16))
+SCAN_LAYER = (1, PROMPT, 8192, 16)       # jamba's Mamba layer (phase 17)
 
 
 def close_or_fail(name, got, want, tol, atol=None) -> float:
@@ -2383,15 +2453,46 @@ def scan_inputs(torch, gen, B, L, Di, S):
                   for sh in ((B, L, Di, S), (B, L, S), (B, Di, S))]
 
 
+SCAN_NAME = "selective_scan_"   # both kernels' names start so (profiler)
+
+
+def scan_plan_text(plan) -> str:
+    """A selective_scan plan as a phrase: path, template and CTA shape."""
+    return (f"{plan.path} path, {plan.states} states a thread, "
+            f"{plan.grid[0] * plan.grid[1]} CTAs of {plan.threads} threads "
+            f"({plan.channels} channels each), {plan.smem_bytes} dynamic "
+            f"shared bytes")
+
+
+def scan_cost(B, L, Di, S):
+    """Bytes (a, bx, c, h0 read once; y and the final state written once)
+    and operations (a multiply and an add for h, a multiply and an add for
+    y, per (b, t, d, s)) of one selective scan."""
+    return ((2 * B * L * Di * S + B * L * S + 2 * B * Di * S + B * L * Di)
+            * 4, 4 * B * L * Di * S)
+
+
+def scan_check(torch, tag, args):
+    """selective_scan through the kernel against its plain version within
+    1e-4; returns (max |diff|, the launch's plan)."""
+    from repro_torch.kernels.selective_scan.kernel import plan_selective_scan
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    plan = plan_selective_scan(*args)[0].plan
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    wy, wh = selective_scan(*args, use_kernel=False)
+    return max(close_or_fail(f"selective_scan y {tag}", y, wy, 1e-4),
+               close_or_fail(f"selective_scan h {tag}", h, wh, 1e-4)), plan
+
+
 def phase_model_kernels(torch, dev):
     """Both model kernels against their plain versions on the card:
     attention at the sweep of tests/test_kernels.py and odd shapes
     (transposed views; float32 2e-5, bf16 2e-2) and at the slice's
     full-width layers (the model's layout; float32 2e-5, bf16 one unit in
     the last place: 2^-7 |plain| + 1e-5); the scan at its sweep, odd
-    shapes and jamba's layer (1e-4)."""
+    shapes, jamba's layer, both paths and both templates (1e-4)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
-    from repro_torch.kernels.selective_scan.ops import selective_scan
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = {"flash_attention": 0.0, "selective_scan": 0.0}
     cases = [(f"sweep {c}", True, *c) for c in FA_SWEEP] + \
@@ -2418,19 +2519,33 @@ def phase_model_kernels(torch, dev):
               f"({', '.join(t for t, *_ in FA_FULL)}; the model's layout) "
               f"within {'2^-7 |plain| + 1e-5' if bf16 else 2e-5}; max "
               f"|diff| so far {errs['flash_attention']}", flush=True)
-    for B, L, Di, S in SCAN_SWEEP:
-        args = scan_inputs(torch, gen, B, L, Di, S)
-        y, h = selective_scan(*args)
-        torch.cuda.synchronize()
-        wy, wh = selective_scan(*args, use_kernel=False)
-        errs["selective_scan"] = max(
-            errs["selective_scan"],
-            close_or_fail(f"selective_scan y {(B, L, Di, S)}", y, wy, 1e-4),
-            close_or_fail(f"selective_scan h {(B, L, Di, S)}", h, wh, 1e-4))
-        del args, y, h, wy, wh
+    reached, sweep = {}, scan_sweep()
+    for shape in sweep:
+        args = scan_inputs(torch, gen, *shape)
+        err, plan = scan_check(torch, shape, args)
+        errs["selective_scan"] = max(errs["selective_scan"], err)
+        reached.setdefault((plan.path, plan.states), []).append(shape)
+        del args
+    for shape in SCAN_UNALIGNED:
+        args = [offset_view(torch, t) for t in scan_inputs(torch, gen, *shape)]
+        err, plan = scan_check(torch, f"{shape} one float into its buffer",
+                               args)
+        if plan.states != 1:
+            fail(f"selective_scan on views one float into their buffers "
+                 f"planned {plan}: expected the one-state template")
+        errs["selective_scan"] = max(errs["selective_scan"], err)
+        reached.setdefault((plan.path, plan.states), []).append(
+            f"{shape} unaligned")
+        del args
+    if set(reached) != {("ring", 4), ("register", 4), ("register", 1)}:
+        fail(f"selective_scan's sweep reached {sorted(reached)}: expected "
+             "the ring and both register templates")
     print(f"[model kernels] selective_scan == plain within 1e-4 on "
-          f"{len(SCAN_SWEEP)} shapes (B, L, Di, S) {list(SCAN_SWEEP)}; max "
-          f"|diff| {errs['selective_scan']}", flush=True)
+          f"{len(sweep)} shapes (B, L, Di, S) and {len(SCAN_UNALIGNED)} "
+          f"on views one float into their buffers; by path and states a "
+          f"thread: " + "; ".join(f"{p} {v}: {len(c)} ({c[:3]}...)"
+                                  for (p, v), c in sorted(reached.items()))
+          + f"; max |diff| {errs['selective_scan']}", flush=True)
     torch.cuda.empty_cache()
     return errs
 
@@ -2702,12 +2817,40 @@ def device_ms(torch, launch, name, n):
     return ev, host, prof
 
 
-def time_model_kernels(torch, dev, errs, launches, fa_build):
+def graph_ms(torch, make_launch, n: int = 200) -> float:
+    """CUDA-event ms a launch over ``n`` launches captured in one CUDA
+    graph and replayed five times: the kernel's back-to-back device time
+    with no host between launches (eager events read the host's enqueue
+    rate once that is the slower).  ``make_launch()`` plans the launch on
+    the capturing stream."""
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        launch = make_launch()
+        launch()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(n):
+            launch()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * n)
+
+
+def time_model_kernels(torch, dev, errs, launches, fa_build, scan_build):
     """Both model kernels at the slice's shapes (random inputs of the
     main path's shapes, layout and dtype) beside their plain versions,
     their bounds, and for attention ``scaled_dot_product_attention``;
     attention's row carries every full-width layer and ``fa_build``
-    (phase 1's report of the bf16 kernel)."""
+    (phase 1's report of the bf16 kernel), the scan's its plan and
+    ``scan_build`` (phase 1's report of its templates)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import plan_flash_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
@@ -2768,28 +2911,30 @@ def time_model_kernels(torch, dev, errs, launches, fa_build):
           f"back-to-back launches; host enqueue {host} ms), profiler {prof} "
           "ms", flush=True)
     del q, k, v
-    B, L, Di, S = SCAN_SWEEP[-1]
+    B, L, Di, S = SCAN_LAYER
     args = scan_inputs(torch, gen, B, L, Di, S)
     launch, _ = plan_selective_scan(*args)
-    ms, host, prof = device_ms(torch, launch, "selective_scan_kernel", 20)
+    ms, host, prof = device_ms(torch, launch, SCAN_NAME, 20)
     plain = time_ms(lambda: selective_scan(*args, use_kernel=False), reps=3)
-    n_bytes = (2 * B * L * Di * S + B * L * S + 2 * B * Di * S + B * L * Di) * 4
-    n_ops = 4 * B * L * Di * S
+    n_bytes, n_ops = scan_cost(B, L, Di, S)
     bound, by = bound_ms(n_bytes, n_ops, 0.0)
     print(f"[timing] selective_scan at jamba-v0.1-52b's Mamba layer (B {B}, "
-          f"L {L}, Di {Di}, S {S}, float32): kernel {ms} ms (CUDA events "
-          f"over 20 back-to-back launches; host enqueue {host} ms), "
-          f"profiler {prof} ms; plain {plain} ms; bound {bound} ms ({by}; "
-          f"{n_bytes} bytes, {n_ops} operations) = "
-          f"{n_bytes / (ms * 1e-3) / 1e12} TB/s achieved; no single PyTorch "
-          f"call computes the recurrence, so no library time", flush=True)
+          f"L {L}, Di {Di}, S {S}, float32; {scan_plan_text(launch.plan)}): "
+          f"kernel {ms} ms (CUDA events over 20 back-to-back launches; host "
+          f"enqueue {host} ms), profiler {prof} ms; plain {plain} ms; bound "
+          f"{bound} ms ({by}; {n_bytes} bytes, {n_ops} operations) = "
+          f"{bound / ms} of the bound by events, {bound / prof} by the "
+          f"profiler; {n_bytes / (ms * 1e-3) / 1e12} TB/s achieved; no "
+          f"single PyTorch call computes the recurrence, so no library time",
+          flush=True)
     rows.append(dict(
         name="selective_scan", route="cuda",
         source="src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
         replaces="src/repro/kernels/selective_scan/kernel.py:46",
         launches=launches["selective_scan_call"],
         max_abs_err=errs["selective_scan"], ms=ms, plain_ms=plain,
-        bound_ms=bound, bound_by=by, library_ms=None))
+        bound_ms=bound, bound_by=by, library_ms=None, profiler_ms=prof,
+        plan=launch.plan._asdict(), build=scan_build))
     return rows
 
 
@@ -4067,25 +4212,25 @@ def phase_decode_scan(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     B, L, Di, S = DECODE_SCAN
     args = scan_inputs(torch, gen, B, L, Di, S)
-    y, h = selective_scan(*args)
-    torch.cuda.synchronize()
-    wy, wh = selective_scan(*args, use_kernel=False)
-    err = max(close_or_fail(f"selective_scan decode y {DECODE_SCAN}", y, wy,
-                            1e-4),
-              close_or_fail(f"selective_scan decode h {DECODE_SCAN}", h, wh,
-                            1e-4))
+    err, _ = scan_check(torch, f"decode {DECODE_SCAN}", args)
     launch, _ = plan_selective_scan(*args)
-    ms, host, prof = device_ms(torch, launch, "selective_scan_kernel", 200)
+    ms, host, prof = device_ms(torch, launch, SCAN_NAME, 200)
+    graph = graph_ms(torch, lambda: plan_selective_scan(*args)[0])
     plain = time_ms(lambda: selective_scan(*args, use_kernel=False), reps=20)
-    n_bytes = (2 * B * L * Di * S + B * L * S + 2 * B * Di * S + B * L * Di) * 4
-    bound, by = bound_ms(n_bytes, 4 * B * L * Di * S, 0.0)
+    n_bytes, n_ops = scan_cost(B, L, Di, S)
+    bound, by = bound_ms(n_bytes, n_ops, 0.0)
     print(f"[kernels] selective_scan at jamba's decode shape (B {B}, L {L}, "
-          f"Di {Di}, S {S}, h0 ~ N(0, 1)) == plain within 1e-4 (max |diff| "
-          f"{err}); kernel {ms} ms (CUDA events over 200 back-to-back "
-          f"launches; host enqueue {host} ms), profiler {prof} ms; plain "
-          f"{plain} ms; bound {bound} ms ({by}; {n_bytes} bytes)", flush=True)
-    return err, dict(shape=list(DECODE_SCAN), ms=ms, profiler_ms=prof,
-                     plain_ms=plain, bound_ms=bound, bound_by=by)
+          f"Di {Di}, S {S}, h0 ~ N(0, 1); {scan_plan_text(launch.plan)}) == "
+          f"plain within 1e-4 (max |diff| {err}); kernel {ms} ms (CUDA events "
+          f"over 200 back-to-back launches; host enqueue {host} ms), "
+          f"{graph} ms (CUDA events over the same 200 launches replayed from "
+          f"one CUDA graph), profiler {prof} ms; plain {plain} ms; bound "
+          f"{bound} ms ({by}; {n_bytes} bytes) = {bound / ms} of the bound "
+          f"by eager events, {bound / graph} by graph events, {bound / prof} "
+          f"by the profiler", flush=True)
+    return err, dict(shape=list(DECODE_SCAN), ms=ms, graph_ms=graph,
+                     profiler_ms=prof, host_ms=host, plain_ms=plain,
+                     bound_ms=bound, bound_by=by, plan=launch.plan._asdict())
 
 
 def decode_vs_prefill(torch, cfg, params, tokens, counters, want):
@@ -4529,6 +4674,7 @@ def main() -> None:
                 print(f"[build] {stem}: {line.strip()}", flush=True)
     fa_build = attention_build_report(libs["flash_attention"])
     mlstm_build = mlstm_build_report(libs["mlstm_chunk"])
+    scan_build = scan_build_report(libs["selective_scan"])
     smi = nvidia_smi()
     clock_hz = max_sm_clock_hz()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -4649,7 +4795,8 @@ def main() -> None:
 
     stamp("17", t_start)
     # ---- 17. timings of the model kernels -----------------------------------
-    rows += time_model_kernels(torch, dev, m_errs, m_launches, fa_build)
+    rows += time_model_kernels(torch, dev, m_errs, m_launches, fa_build,
+                               scan_build)
 
     stamp("18", t_start)
     # ---- 18. mlstm_chunkwise against its plain version and the oracle --------

@@ -17,6 +17,7 @@ from repro_torch.kernels.round_fuse.kernel import fused_round_call  # noqa: E402
 from repro_torch.kernels.round_fuse.ops import fused_stages  # noqa: E402
 from repro_torch.kernels.sched_pop.kernel import sched_pop_call  # noqa: E402
 from repro_torch.kernels.sched_pop.ops import sched_pop  # noqa: E402
+from repro_torch.kernels.selective_scan.kernel import RING_STEPS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -706,22 +707,71 @@ def test_flash_attention_bf16_launches_are_bitwise_equal(dev, Dh, win):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
-@pytest.mark.parametrize("B,L,Di,S", [(1, 16, 32, 8), (2, 64, 128, 16),
-                                      (1, 128, 256, 16), (2, 37, 40, 4),
-                                      (1, 300, 96, 32)])
-def test_selective_scan_kernel_matches_plain(dev, B, L, Di, S):
-    from repro_torch.kernels.selective_scan.ops import selective_scan
+def _scan_args(dev, B, L, Di, S, offset=0):
+    """a = exp(-|N|), bx, c, h0 ~ N from the seed L + Di; ``offset`` puts
+    each tensor that many floats into its buffer."""
     rng = np.random.default_rng(L + Di)
     a = np.exp(-np.abs(rng.standard_normal((B, L, Di, S)))).astype(np.float32)
     bx = rng.standard_normal((B, L, Di, S)).astype(np.float32)
     c = rng.standard_normal((B, L, S)).astype(np.float32)
     h0 = rng.standard_normal((B, Di, S)).astype(np.float32)
-    args = [torch.from_numpy(x).to(dev) for x in (a, bx, c, h0)]
+    out = []
+    for x in (a, bx, c, h0):
+        buf = torch.empty(x.size + offset, device=dev)
+        out.append(buf[offset:].view(x.shape).copy_(torch.from_numpy(x)))
+    return out
+
+
+# the sweep of tests/test_kernels.py and odd shapes; then both paths and
+# both templates: L around one ring chunk and long, every S, B 4 with a
+# carried state, Di 333 (no multiple of any CTA's channels), and 2 KB ring
+# rows (Di 8,200 at B 2)
+SCAN_CASES = [(1, 16, 32, 8), (2, 64, 128, 16), (1, 128, 256, 16),
+              (2, 37, 40, 4), (1, 300, 96, 32)] + \
+    [(4, L, 333, S) for L in (1, 2, RING_STEPS - 1, RING_STEPS,
+                              RING_STEPS + 1, 300)
+     for S in (1, 2, 4, 8, 16, 32)] + [(2, 33, 8200, 16)]
+
+
+@pytest.mark.parametrize("B,L,Di,S", SCAN_CASES)
+def test_selective_scan_kernel_matches_plain(dev, B, L, Di, S):
+    from repro_torch.kernels.selective_scan.kernel import (
+        plan_selective_scan, selective_scan_plan)
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    args = _scan_args(dev, B, L, Di, S)
+    assert plan_selective_scan(*args)[0].plan == \
+        selective_scan_plan(B, L, Di, S)
     y, h = selective_scan(*args)
     torch.cuda.synchronize()
     wy, wh = selective_scan(*args, use_kernel=False)
     torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("L,S", [(1, 16), (RING_STEPS + 1, 4), (300, 16)])
+def test_selective_scan_kernel_reads_unaligned_views(dev, L, S):
+    """Views one float into their buffers take the one-state template at
+    any L (no 16-byte loads, no bulk copies)."""
+    from repro_torch.kernels.selective_scan.kernel import plan_selective_scan
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    args = _scan_args(dev, 4, L, 333, S, offset=1)
+    assert plan_selective_scan(*args)[0].plan.states == 1
+    y, h = selective_scan(*args)
+    torch.cuda.synchronize()
+    wy, wh = selective_scan(*args, use_kernel=False)
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, wh, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("L", [1, 300])
+def test_selective_scan_launches_are_bitwise_equal(dev, L):
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_call
+    args = _scan_args(dev, 4, L, 333, 16)
+    y1, h1 = selective_scan_call(*args)
+    y2, h2 = selective_scan_call(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(h1.view(torch.int32), h2.view(torch.int32))
 
 
 def _tree(fn, t):
