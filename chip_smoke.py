@@ -97,9 +97,10 @@ Phases, each printed on its own line:
     plain, 16 heavy rounds, the last 8 timed; ``exchange_compact`` and
     ``by_sid_snapshot`` must have launched once per round,
     ``apply_programs`` never.
-11. The IoT suite at 128 tenants, where every round drains, at 4 shards
-    against 1 shard, both through the kernels: latency histograms, SLO
-    report, records, window aggregates and counters equal.  Then phase 7
+11. The IoT suite at 128 tenants, where every round drains (16 trace
+    rounds), at 4 shards against 1 shard, both through the kernels:
+    latency histograms, SLO report, records, window aggregates and
+    counters equal.  Then phase 7
     on 4 shards at 8 trace rounds (``SHARDED_SUITE_ROUNDS``): the
     full-width suite through the kernels and through their plain
     versions, bitwise.
@@ -136,9 +137,12 @@ Phases, each printed on its own line:
 14. The model plane's two kernels against their plain versions:
     ``flash_attention`` on the sweep of ``tests/test_kernels.py`` and odd
     lengths and widths (as transposed views of (B, H, L, Dh) tensors),
-    within 2e-5 in float32 and 2e-2 in bf16, and at the slice's
-    full-width layers in the model's (B, L, H, Dh) layout (gemma3-1b's
-    local and global, jamba's), within 2e-5 in float32 and one bf16 unit
+    within 2e-5 in float32 and 2e-2 in bf16, and at the full-width
+    layers of the model plane in the model's (B, L, H, Dh) layout
+    (gemma3-1b's local and global, jamba's, gemma3-27b's local (window
+    1,024) and global, and one layer each of deepseek-moe-16b, minitron-8b,
+    mistral-large-123b (a GQA group of 12), musicgen-large (32 heads of
+    Dh 64) and qwen2-vl-72b), within 2e-5 in float32 and one bf16 unit
     in the last place (2^-7 of |plain| + 1e-5) in bf16;
     ``selective_scan`` on its sweep, odd shapes, jamba's Mamba layer
     (B 1, L 4096, Di 8192, S 16) and rows of 2 KB (B 2, Di 8,200), then
@@ -166,8 +170,10 @@ Phases, each printed on its own line:
     profiler's device time) beside their plain versions, their bounds
     (attention's operations at the bf16 tensor-core peak, the scan's
     bytes) and, for attention, ``scaled_dot_product_attention``:
-    attention in bf16 at all three full-width layers, with its achieved
-    TFLOP/s on the 4 B H pairs Dh operations the function needs; also
+    attention in bf16 at gemma3-1b's, jamba's, gemma3-27b's two,
+    mistral-large-123b's and musicgen-large's full-width layers, with its
+    achieved TFLOP/s on the 4 B H pairs Dh operations the function needs;
+    also
     attention's float32 time at jamba's layer; the scan at jamba's
     Mamba layer with its plan (path, template, CTAs) and its share of
     the bound by events and by the profiler.
@@ -177,11 +183,11 @@ Phases, each printed on its own line:
     lengths that are no multiple of the chunk, Dh up to 1,024 and forget
     gates near 0 and 1 and very negative input gates, once with float32
     and once with bf16 q, k, v (the plain version upcasts them).
-19. ``make_prefill_step`` of xlstm-1.3b at full width and three of its six
-    periods (``XLSTM_LAYERS`` = 24 of 48 layers: 3 sLSTM, 21 mLSTM; B 2,
+19. ``make_prefill_step`` of xlstm-1.3b at full width and two of its six
+    periods (``XLSTM_LAYERS`` = 16 of 48 layers: 2 sLSTM, 14 mLSTM; B 2,
     L 4,096) in bf16, weights and prompts from the seed: the counted
     prefill must launch ``mlstm_chunkwise``'s five kernels once per mLSTM
-    layer (105) and nothing else; per leaf, kernels (in bf16 the counted
+    layer (70) and nothing else; per leaf, kernels (in bf16 the counted
     prefill) against plain beside the plain version against itself with
     the token embeddings one ulp up, in bf16 and in float32 (gated only
     on finite values: the whole model amplifies a last-bit difference far
@@ -207,7 +213,7 @@ Phases, each printed on its own line:
     and a dead-letter spool of 512 (``copy_registry(...,
     retention_slots=16, dlq_slots=512)``), at 1 shard fused, 1 shard
     staged (phase 5's ``tanh`` composite) and 4 shards fused: an engine
-    checkpointing every second superstep of K = 8 asynchronously
+    checkpointing every second superstep of K = 4 asynchronously
     (``checkpoint_to``) is deleted after four supersteps and rebuilt by
     ``restore_engine`` from the directory; it must equal an engine that
     ran the same input without interruption and a plain-version engine,
@@ -236,7 +242,7 @@ Phases, each printed on its own line:
     shards fused with ``fanout_fn=make_fanout()``: the cell of phase 22
     with the breaker armed and an island of four streams of tenant 0
     that nothing else reads.  A ``Supervisor`` drives a kernel engine
-    through six supersteps of K = 8 under a seeded ``ChaosMonkey``:
+    through six supersteps of K = 4 under a seeded ``ChaosMonkey``:
     poisoned payloads on the island's sources, a storm, a hostile
     overflow swap, a torn newest checkpoint with a ``ShardKill``, and a
     second kill.  It must recover both, restore on the card with its
@@ -271,7 +277,7 @@ Phases, each printed on its own line:
     tick's memory bound.  Then ``repro_torch.launch.serve.main`` once at
     full width.
 28. PRED flows through the serving bridge: ``build_suite`` with ETL,
-    STATS and PRED tenants in turn (24 tenants, 12 trace rounds and 4
+    STATS and PRED tenants in turn (24 tenants, 8 trace rounds and 4
     more, supersteps of K = 4), ``wire_pred`` with a bf16 gemma3-1b
     batcher (4 slots), at 1 shard and at 4 shards, fused; the engine
     through the kernels against the engine through their plain versions,
@@ -282,6 +288,32 @@ Phases, each printed on its own line:
     window store, the bridge's completions and the response streams
     bitwise, the round kernels once per round.  PRED latency p50/p95/p99
     (rounds), requests, ticks and ``drive()`` wall time are printed.
+29. The seven other architectures at their published widths, one
+    ``[time]`` stamp each: gemma3-27b, deepseek-moe-16b, qwen2-moe-a2.7b,
+    minitron-8b and musicgen-large at their published depths,
+    mistral-large-123b at 16 of 88 layers and qwen2-vl-72b at 24 of 80
+    (all layers exceed the card's memory).  For each: (a) the bf16
+    prefill (B 1, L 4,096 token ids, musicgen's four codebook ids a
+    position or qwen2-vl's input embeddings; weights drawn on the card
+    from the seed leaf by leaf, cast as drawn) through the kernels, its
+    ``flash_attention_call`` launches equal to the attention layers and
+    no other kernel launched, timed once more, then through the plain
+    versions on the kernel pass's experts, logits and every cache leaf
+    within 0.1 of the leaf's max |plain|; (b) a float32 copy cut to the
+    prefix layers and the first period (two layers where the period is
+    one), drawn in float32 from the same seed, kernels against plain
+    within 1e-4; (c) prefill(L - 1) + one decode step against the prefill
+    of all L positions' last logits (B 2; L 1,536 for gemma3-27b, whose
+    1,024-slot local rings wrap, 512 for the MoE models, whose dispatch
+    groups must divide L and L - 1, else 1,024), the MoE capacity raised
+    to hold every token, within 0.1 in bf16 at the run depth and 1e-4 in
+    float32 on the cut copy, the counted decode step launching no kernel.
+    For the five text models: the continuous batcher in float32 on the
+    cut copy equals greedy decoding through ``forward`` (the reference's
+    smallest top-2 gap above 1e-4 first), one bf16 run at the run depth
+    timed (ms per tick, tokens/s), and ``launch.serve.main`` at the
+    published size where it fits the card (all but mistral-large-123b);
+    ``launch.serve.main`` must refuse musicgen-large and qwen2-vl-72b.
 
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
@@ -291,6 +323,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -2391,9 +2424,22 @@ FA_SWEEP = ((1, 2, 2, 128, 64, None), (2, 4, 2, 256, 128, None),
             (1, 8, 4, 128, 64, None),             # tests/test_kernels.py:80
             (2, 4, 1, 77, 256, 13), (1, 3, 1, 1, 16, None),
             (1, 4, 2, 200, 24, None))             # odd lengths and widths
+# full-width attention layers (tag, B, H, KV, L, Dh, window): GQA groups
+# H / KV of 4, 2, 1, 4, 12, 1 (Dh 64) and 8 besides gemma3-1b's 4 at Dh 256
 FA_FULL = (("gemma3-1b local", 2, 4, 1, PROMPT, 256, 512),
            ("gemma3-1b global", 2, 4, 1, PROMPT, 256, None),
-           ("jamba-v0.1-52b", 1, 32, 8, PROMPT, 128, None))
+           ("jamba-v0.1-52b", 1, 32, 8, PROMPT, 128, None),
+           ("gemma3-27b local", 1, 32, 16, PROMPT, 128, 1024),
+           ("gemma3-27b global", 1, 32, 16, PROMPT, 128, None),
+           ("deepseek-moe-16b", 1, 16, 16, PROMPT, 128, None),
+           ("minitron-8b", 1, 32, 8, PROMPT, 128, None),
+           ("mistral-large-123b", 1, 96, 8, PROMPT, 128, None),
+           ("musicgen-large", 1, 32, 32, PROMPT, 64, None),
+           ("qwen2-vl-72b", 1, 64, 8, PROMPT, 128, None))
+# the layers phase 17 times
+FA_TIMED = ("gemma3-1b local", "gemma3-1b global", "jamba-v0.1-52b",
+            "gemma3-27b local", "gemma3-27b global", "mistral-large-123b",
+            "musicgen-large")
 SCAN_SWEEP = ((1, 16, 32, 8), (2, 64, 128, 16), (1, 128, 256, 16),  # :103
               (2, 37, 40, 4), (1, 300, 96, 32),  # odd lengths, other S
               (1, PROMPT, 8192, 16),             # jamba's Mamba layer
@@ -2648,18 +2694,31 @@ class RouteReplay:
         return out_k, out_p, flips
 
 
-def prefill_inputs(torch, dev, cfg, B, seed):
-    """Weights (drawn on the card from ``seed``, cast as ``cast_params``
-    casts them) and a batch of B prompts of PROMPT tokens from ``seed``."""
+def model_batch(torch, dev, cfg, B, L, seed):
+    """B prompts of L positions from ``seed`` in the model's input: token
+    ids (B, L), codebook ids (B, L, K) where the model has K > 1
+    codebooks, or input embeddings (B, L, d_model) ~ N(0, 1) in the
+    compute dtype where it takes embeddings (drawn on the card)."""
     import numpy as np
+    if cfg.embed_inputs:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return {"embeds": torch.randn((B, L, cfg.d_model), generator=gen,
+                                      device=dev).to(cfg.cdtype)}
+    shape = (B, L, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, L)
+    return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, shape)).to(dev)}
+
+
+def prefill_inputs(torch, dev, cfg, B, seed):
+    """Weights (drawn on the card from ``seed`` leaf by leaf, each cast as
+    ``cast_params`` casts it as soon as it is drawn) and a batch of B
+    prompts of PROMPT positions from ``seed`` (``model_batch``)."""
     from repro_torch.models.model import cast_leaf, param_specs
     from repro_torch.models.params import init_params
     params = init_params(param_specs(cfg),
                          torch.Generator(device=dev).manual_seed(seed), dev,
                          transform=lambda t: cast_leaf(cfg, t))
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (B, PROMPT))).to(dev)
-    return params, {"tokens": tokens}
+    return params, model_batch(torch, dev, cfg, B, PROMPT, seed)
 
 
 def upcast(torch, params) -> None:
@@ -2858,7 +2917,8 @@ def time_model_kernels(torch, dev, errs, launches, fa_build, scan_build):
     from repro_torch.kernels.selective_scan.ops import selective_scan
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, layers = [], {}
-    for tag, B, H, KV, L, Dh, win in FA_FULL:
+    for tag, B, H, KV, L, Dh, win in (c for c in FA_FULL
+                                      if c[0] in FA_TIMED):
         q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.bfloat16)
         launch, _ = plan_flash_attention(q, k, v, window=win)
         ms, host, prof = device_ms(torch, launch, "flash_attention_wgmma_kernel",
@@ -2902,7 +2962,7 @@ def time_model_kernels(torch, dev, errs, launches, fa_build, scan_build):
                 bound_ms=bound, bound_by=by, library_ms=lib, layers=layers,
                 build=fa_build))
         del q, k, v, qh, kh, vh
-    tag, B, H, KV, L, Dh, win = FA_FULL[-1]
+    tag, B, H, KV, L, Dh, win = FA_FULL[2]
     q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.float32)
     launch, _ = plan_flash_attention(q, k, v, window=win)
     ms, host, prof = device_ms(torch, launch, "flash_attention_kernel", 20)
@@ -2944,10 +3004,10 @@ def time_model_kernels(torch, dev, errs, launches, fa_build, scan_build):
 
 XLSTM = "xlstm-1.3b"
 XLSTM_BATCH = 2
-# three of the published six periods (24 of 48 layers): every prefill of
+# two of the published six periods (16 of 48 layers): every prefill of
 # phases 19-20 spends most of its time in the sLSTM scans' host loop, one
 # layer a period, so the phase's time follows the depth
-XLSTM_LAYERS = 24
+XLSTM_LAYERS = 16
 # (B, H, L, Dh, chunk, gates): the sweep of tests/test_kernels.py:119, then
 # lengths no multiple of the chunk, Dh up to 1024, extreme gates, and full
 # chunks of 256 rows after the first whose starting state still weighs
@@ -3586,7 +3646,7 @@ def timed(torch, dev, fn):
 def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
     """Phase 22 on one configuration of the smoke cell (``reg``'s path, at
     ``shards`` shards): engine A checkpoints to a directory every second
-    superstep of K = 8 (asynchronous saves), engine B and a plain-version
+    superstep of K = 4 (asynchronous saves), engine B and a plain-version
     engine take the same input without interruption.  After four
     supersteps A is deleted and ``restore_engine`` rebuilds it from the
     newest checkpoint; the restored engine, B and the plain engine take one
@@ -3608,7 +3668,7 @@ def phase_kill_resume(torch, dev, reg, sources, shards, counters, smi):
     import numpy as np
     from repro_torch.checkpoint import ckpt
     from repro_torch.core import create_engine, restore_engine
-    K, before, after = 8, 4, 1
+    K, before, after = 4, 4, 1
     B = reg.cfg.batch
     kw = dict(DURABLE, superstep=K, checkpoint_every=2)
     if shards > 1:
@@ -3945,27 +4005,28 @@ def phase_elastic(torch, dev, reg, sources, counters, smi):
 # the drill's schedule (checkpoints after supersteps 2, 4, ...): the
 # hostile swap at superstep 2, then the newest checkpoint (4) torn and a
 # kill at 4, which restores 2 and replays 2-4 (the swap included); a
-# second kill at 5 restores the 4 rewritten by that replay.  Short,
-# because the plain 4-shard engine takes ~0.7 s a round.  SUs posted to
-# the cell's sources each superstep:
+# second kill at 5 restores the 4 rewritten by that replay.  Short, and
+# supersteps of CHAOS_K rounds, because the plain 4-shard engine takes
+# ~0.7-1.1 s a round.  SUs posted to the cell's sources each superstep:
 CHAOS_STEPS, CHAOS_TEAR, CHAOS_HOSTILE, CHAOS_KILLS = 6, 4, 2, (4, 5)
 CHAOS_RESTORED = [2, 4]
 CHAOS_POSTS = 16
+CHAOS_K = 4
 
 
 def chaos_registry(reg, shards):
     """The drill's registry: ``reg`` with retention 16, a spool of 512,
-    K = 8, a checkpoint every second superstep and the breaker armed (2
-    faults in 8 rounds trip), plus an island of tenant 0 that no other
-    stream reads: sources x0 and x1, and composites xc (``in0 * 2 +
-    in1``) and xh (``in0 - in1``, the hostile swap's target).  Returns
+    K = CHAOS_K, a checkpoint every second superstep and the breaker
+    armed (2 faults in 8 rounds trip), plus an island of tenant 0 that no
+    other stream reads: sources x0 and x1, and composites xc (``in0 * 2
+    + in1``) and xh (``in0 - in1``, the hostile swap's target).  Returns
     the registry, the island's sids and the per-sid pop priority: the
     island is served after every other stream (priority 1), so that its
     extra SUs (the doubled poison posts, the storm) take no pop slot from
     a co-tenant and the deficit gate reads fault isolation alone, not the
     QoS plane's sharing of a loaded queue."""
     import numpy as np
-    kw = dict(DURABLE, superstep=8, checkpoint_every=2, fault_window=8,
+    kw = dict(DURABLE, superstep=CHAOS_K, checkpoint_every=2, fault_window=8,
               fault_threshold=2)
     if shards > 1:
         kw.update(n_shards=shards, exchange_slots=0)
@@ -4026,7 +4087,7 @@ def phase_chaos(torch, dev, reg, sources, shards, counters, smi,
                 ms_restores):
     """Phase 25 at ``shards`` shards (``reg``'s fused path; at 4 shards
     every engine fans out through ``make_fanout()``): a ``Supervisor``
-    drives a kernel engine through ``CHAOS_STEPS`` supersteps of K = 8
+    drives a kernel engine through ``CHAOS_STEPS`` supersteps of CHAOS_K
     under a seeded ``ChaosMonkey``: poisoned payloads on the island's
     sources, a storm, the hostile overflow swap, a torn newest checkpoint
     with a ``ShardKill``, and a second kill.  Beside it an undisturbed
@@ -4051,7 +4112,7 @@ def phase_chaos(torch, dev, reg, sources, shards, counters, smi,
     from repro_torch.kernels.stream_dispatch.ops import make_fanout
     from repro_torch.launch import (ChaosMonkey, ShardKill, Supervisor,
                                     corrupt_checkpoint)
-    K = 8
+    K = CHAOS_K
     tag = f"chaos D={shards}"
     base, island, priority = chaos_registry(reg, shards)
     x0, x1, xc, xh = island
@@ -4233,23 +4294,24 @@ def phase_decode_scan(torch, dev):
                      bound_ms=bound, bound_by=by, plan=launch.plan._asdict())
 
 
-def decode_vs_prefill(torch, cfg, params, tokens, counters, want):
-    """prefill(L - 1, pad_to=L) then one decode step of token L - 1,
-    against the last position of a prefill of all L tokens, through the
+def decode_vs_prefill(torch, cfg, params, batch, counters, want):
+    """prefill(L - 1, pad_to=L) then one decode step of position L - 1,
+    against the last position of a prefill of all L positions of
+    ``batch`` (token ids, codebook ids or embeddings), through the
     kernels.  Fails unless the decode step launched exactly ``want``;
     returns (max |diff| / max |prefill|, ms of the decode step)."""
     from repro_torch.models.model import make_decode_step, make_prefill_step
-    B, L = tokens.shape
-    full, _ = make_prefill_step(cfg)(params, {"tokens": tokens})
-    _, caches = make_prefill_step(cfg, pad_to=L)(params,
-                                                 {"tokens": tokens[:, :-1]})
-    pos = torch.full((B,), L - 1, dtype=torch.int32, device=tokens.device)
+    (key, x), = batch.items()
+    B, L = x.shape[:2]
+    full, _ = make_prefill_step(cfg)(params, batch)
+    _, caches = make_prefill_step(cfg, pad_to=L)(params, {key: x[:, :-1]})
+    pos = torch.full((B,), L - 1, dtype=torch.int32, device=x.device)
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
     logits, _ = make_decode_step(cfg)(params, caches,
-                                      {"tokens": tokens[:, -1:]}, pos)
+                                      {key: x[:, -1:].contiguous()}, pos)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     check_launches(f"{cfg.name} decode step", counters, want)
@@ -4319,19 +4381,16 @@ def phase_decode(torch, dev, counters):
             ratios["bf16 kernels vs plain"] = (ratio, path, flips)
             del outs
         else:
-            ratio, ms = decode_vs_prefill(torch, cfg, params, tokens,
-                                          counters, want)
+            ratio, ms = decode_vs_prefill(torch, cfg, params,
+                                          {"tokens": tokens}, counters, want)
             if ratio > 0.1:
                 fail(f"{arch} bf16: decode vs prefill logits read {ratio} of "
                      "the max, above 0.1")
             ratios["bf16 decode vs prefill"] = (ratio, f"{ms} ms decode")
         upcast(torch, params)
-        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        if cfg.n_experts:
-            cfg32 = dataclasses.replace(
-                cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
-        ratio, ms = decode_vs_prefill(torch, cfg32, params, tokens, counters,
-                                      want)
+        cfg32 = drop_free(dataclasses.replace(cfg, compute_dtype="float32"))
+        ratio, ms = decode_vs_prefill(torch, cfg32, params,
+                                      {"tokens": tokens}, counters, want)
         if ratio > 1e-4:
             fail(f"{arch} float32: decode vs prefill logits read {ratio} of "
                  "the max, above 1e-4")
@@ -4401,26 +4460,14 @@ def phase_batcher(torch, dev, smi):
     cfg = get_config("gemma3-1b")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     params, _ = prefill_inputs(torch, dev, cfg32, 1, SEED + 27)
-    b = ContinuousBatcher(cfg32, params, slots=BATCHER["slots"],
-                          max_len=BATCHER["max_len"], device=dev)
-    got, _ = serve_requests(torch, b, BATCHER["requests"],
-                            BATCHER["greedy_tokens"])
-    gaps = []
-    for i in range(BATCHER["requests"]):
-        want, gap = greedy_forward(torch, cfg32, b.params, [2 + i, 7, 11 + i],
-                                   BATCHER["greedy_tokens"])
-        gaps.append(gap)
-        if got.get(i) != want:
-            fail(f"batcher float32: request {i} decoded {got.get(i)}, greedy "
-                 f"forward {want} (smallest top-2 gap {gap})")
-    if min(gaps) <= 1e-4:
-        fail(f"batcher float32: the greedy reference's smallest top-2 gap "
-             f"{min(gaps)} is not above 1e-4 (the run is not well posed)")
+    gap, ticks = serve_f32(torch, dev, cfg32, params, BATCHER["slots"],
+                           BATCHER["requests"], BATCHER["greedy_tokens"],
+                           BATCHER["max_len"])
     print(f"[batcher] gemma3-1b float32, {BATCHER['slots']} slots, "
           f"{BATCHER['requests']} requests x {BATCHER['greedy_tokens']} "
-          f"tokens in {b.ticks} ticks == greedy decoding through forward "
-          f"(smallest top-2 gap {min(gaps)})", flush=True)
-    del b, params
+          f"tokens in {ticks} ticks == greedy decoding through forward "
+          f"(smallest top-2 gap {gap})", flush=True)
+    del params
     torch.cuda.empty_cache()
 
     params, _ = prefill_inputs(torch, dev, cfg, 1, SEED + 27)
@@ -4488,7 +4535,7 @@ def phase_batcher(torch, dev, smi):
 
 # the PRED suite of phase 28: ETL, STATS and PRED tenants in turn (8 PRED
 # flows), each raw stream firing with probability 0.25 a trace round
-PRED = dict(n_tenants=24, rounds=12, K=4, slots=4, max_len=64)
+PRED = dict(n_tenants=24, rounds=8, K=4, slots=4, max_len=64)
 
 
 def pred_percentiles(suite):
@@ -4597,6 +4644,242 @@ def phase_pred(torch, dev, shards, cfg, params, counters, smi):
           flush=True)
     return dict(p50=p50, p95=p95, p99=p99, requests=sk.bridge._next_rid,
                 ticks=b.ticks, wall_s=wall)
+
+
+# --------------------------------------------------------------------------
+# phase 29: the seven other architectures (prefill, decode, serving)
+# --------------------------------------------------------------------------
+
+# (arch, layers kept (None: the published depth), decode L).  mistral-large
+# (245 GB in bf16) and qwen2-vl (143 GB) keep 16 and 24 layers, ~46 and
+# ~45 GB; decode L 1,536 lets gemma3-27b's 1,024-slot local rings wrap,
+# 512 keeps an MoE model's dispatch groups (min(512, L) tokens) dividing
+# both L and L - 1
+ARCHS_29 = (("gemma3-27b", None, 1536), ("deepseek-moe-16b", None, 512),
+            ("qwen2-moe-a2.7b", None, 512), ("minitron-8b", None, 1024),
+            ("musicgen-large", None, 1024), ("mistral-large-123b", 16, 1024),
+            ("qwen2-vl-72b", 24, 1024))
+SERVE_29 = dict(slots=4, requests=4, max_len=64, greedy_tokens=3,
+                timed_tokens=8)
+
+
+def cut_copy(cfg):
+    """``cfg`` cut to its prefix layers and its first period (two layers
+    where the period is one, so that the scan stacks two), in float32."""
+    import dataclasses
+    n = len(cfg.prefix) + cfg.period * (2 if cfg.period == 1 else 1)
+    return dataclasses.replace(cfg, n_layers=n,
+                               compute_dtype="float32").validate()
+
+
+def drop_free(cfg):
+    """``cfg`` with the MoE capacity raised to hold every token of a
+    group (a decode token is never dropped; a prefill token can be)."""
+    import dataclasses
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def replayed_pair(torch, cfg, params, batch, counters, want, tag):
+    """The prefill through the kernels (every launch counter 0 just
+    before it), then through the plain versions on the kernel pass's
+    experts (``RouteReplay.paired``); the plain pass launches no kernel,
+    so the counts read after it are the kernel pass's, checked against
+    ``want``.  Returns (worst leaf ratio, its path, the tokens routed
+    otherwise, the counts read)."""
+    from repro_torch.models.model import make_prefill_step
+    for c in counters:
+        c.launches = 0
+    with RouteReplay() as replay:
+        out_k, out_p, flips = replay.paired(
+            make_prefill_step(cfg), make_prefill_step(cfg, use_kernel=False),
+            params, batch, "replay")
+    torch.cuda.synchronize()
+    got = check_launches(tag, counters, want)
+    ratio, path = worst_leaf(tag, {"logits": out_k[0], "caches": out_k[1]},
+                             {"logits": out_p[0], "caches": out_p[1]})
+    return ratio, path, flips, got
+
+
+def serve_f32(torch, dev, cfg, params, slots, n, k, max_len):
+    """The batcher (``slots`` slots, ``n`` requests of three-token
+    prompts, ``k`` tokens each) against greedy decoding through
+    ``forward``; the greedy reference runs first and its smallest top-2
+    logit gap must be above 1e-4 (a well-posed run) before the tokens are
+    compared.  Returns (that gap, the batcher's ticks)."""
+    from repro_torch.serving import ContinuousBatcher
+    b = ContinuousBatcher(cfg, params, slots=slots, max_len=max_len,
+                          device=dev)
+    want, gaps = {}, []
+    for i in range(n):
+        want[i], gap = greedy_forward(torch, cfg, b.params,
+                                      [2 + i, 7, 11 + i], k)
+        gaps.append(gap)
+    if min(gaps) <= 1e-4:
+        fail(f"{cfg.name} batcher float32: the greedy reference's smallest "
+             f"top-2 gap {min(gaps)} is not above 1e-4 (not well posed)")
+    got, _ = serve_requests(torch, b, n, k)
+    if got != want:
+        fail(f"{cfg.name} batcher float32: decoded {got}, greedy forward "
+             f"{want}")
+    return min(gaps), b.ticks
+
+
+def serve_bf16(torch, dev, cfg, params):
+    """One timed bf16 batcher run: (ms per tick, tokens/s, ticks)."""
+    from repro_torch.serving import ContinuousBatcher
+    b = ContinuousBatcher(cfg, params, slots=SERVE_29["slots"],
+                          max_len=SERVE_29["max_len"], device=dev)
+    serve_requests(torch, b, SERVE_29["slots"], 2)                # warm-up
+    ticks0 = b.ticks
+    out, wall = serve_requests(torch, b, SERVE_29["requests"],
+                               SERVE_29["timed_tokens"])
+    n_tok = sum(len(v) for v in out.values())
+    if n_tok != SERVE_29["requests"] * SERVE_29["timed_tokens"]:
+        fail(f"{cfg.name} batcher bf16: {n_tok} tokens served")
+    n_ticks = b.ticks - ticks0
+    return wall * 1e3 / n_ticks, n_tok / wall, n_ticks
+
+
+def phase_arch(torch, dev, arch, n_layers, L_dec, counters, smi):
+    """Phase 29 for one architecture (see the module docstring): the bf16
+    prefill at the run depth through the kernels (launches counted) and
+    through the plain versions; the float32 cut copy kernels against
+    plain; decode against the full prefill in both; the batchers and the
+    launcher for a text model, the launcher's refusal for a modality
+    model.  Returns the ``flash_attention_call`` launches of the counted
+    bf16 prefill, as read from its counter."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ATTN, ATTN_LOCAL
+    from repro_torch.models.model import count_params, make_prefill_step
+    t_arch = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers).validate() \
+        if n_layers else full
+    text = cfg.n_codebooks == 1 and not cfg.embed_inputs
+    n_attn = sum(m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layer_specs)
+    none = {c.__name__: 0 for c in counters}
+    want = dict(none, flash_attention_call=n_attn)
+    seed = SEED + 29
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, batch = prefill_inputs(torch, dev, cfg, 1, seed)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    draw_peak = torch.cuda.max_memory_allocated()
+    cut = (f"{cfg.n_layers} of the published {full.n_layers} layers (all "
+           f"{full.n_layers}: {count_params(full) * 2} bytes in bf16, past "
+           f"the card's memory)" if n_layers else
+           f"{cfg.n_layers} layers, the published depth")
+    (key, x), = batch.items()
+    print(f"[{arch}] {cut}, full width (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads}, Dh {cfg.d_head}); {count_params(cfg)}"
+          f" parameters, {n_bytes} bytes on the card ({cfg.compute_dtype}), "
+          f"drawn in {t_draw:.2f} s at a peak of {draw_peak} bytes; input "
+          f"{key} {tuple(x.shape)} {x.dtype}", flush=True)
+
+    ratio, path, flips, got = replayed_pair(torch, cfg, params, batch,
+                                            counters, want,
+                                            f"{arch} bf16 prefill")
+    launches = got["flash_attention_call"]
+    if ratio > 0.1:
+        fail(f"{arch} bf16: kernels vs plain at {path} read {ratio} of the "
+             "leaf's max |plain|, above 0.1")
+    ms, peak = timed_prefill(torch, make_prefill_step(cfg), params, batch, 1)
+    print(f"[{arch}] bf16 prefill B 1, L {x.shape[1]}: flash_attention_call "
+          f"launched {launches} times (its {n_attn} attention layers; no "
+          f"other kernel) "
+          f"in the counted run; kernels vs plain (the plain pass on the "
+          f"kernel pass's experts; tokens routed otherwise {flips}) worst "
+          f"leaf max |diff| / max |plain| = {ratio} ({path}; gate 0.1); "
+          f"{ms} ms per prefill (one run after the counted one), "
+          f"{PROMPT / ms * 1e3} prompt tokens/s, max_memory_allocated "
+          f"{peak} bytes on {smi}", flush=True)
+
+    dcfg = drop_free(cfg)
+    dbatch = model_batch(torch, dev, cfg, 2, L_dec, seed + 1)
+    ratio, ms = decode_vs_prefill(torch, dcfg, params, dbatch, counters, none)
+    if ratio > 0.1:
+        fail(f"{arch} bf16: decode vs prefill logits read {ratio} of the "
+             "max, above 0.1")
+    print(f"[{arch}] bf16 decode at {cfg.n_layers} layers (B 2, L {L_dec}"
+          f"{', capacity raised' if cfg.n_experts else ''}): prefill(L - 1) +"
+          f" one decode step vs the prefill of L, last logits max |diff| / "
+          f"max = {ratio} (gate 0.1); the decode step {ms} ms (synchronised,"
+          f" its first call), no kernel launched", flush=True)
+    del dbatch
+    if text:
+        ms_tick, tok_s, ticks = serve_bf16(torch, dev, cfg, params)
+        print(f"[{arch}] batcher bf16 at {cfg.n_layers} layers, "
+              f"{SERVE_29['slots']} slots: {SERVE_29['requests']} requests x"
+              f" {SERVE_29['timed_tokens']} tokens in {ticks} ticks, "
+              f"{ms_tick} ms per tick, {tok_s} tokens/s on {smi}", flush=True)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    if text and not n_layers:
+        t0 = time.perf_counter()
+        done = serve.main(["--arch", arch, "--requests", "2", "--slots", "2",
+                           "--max-tokens", "2", "--max-len", "16", "--seed",
+                           str(SEED), "--device", str(dev)])
+        if len(done) != 2 or any(len(r.output) != 2 for r in done):
+            fail(f"{arch} launch.serve: {len(done)} requests served")
+        torch.cuda.empty_cache()
+        print(f"[{arch}] launch.serve.main at the published size: 2 "
+              f"requests in {time.perf_counter() - t0:.1f} s with its weight "
+              "draw", flush=True)
+    elif text:
+        print(f"[{arch}] launch.serve.main not run: it draws all "
+              f"{full.n_layers} layers, past the card's memory", flush=True)
+    else:
+        try:
+            serve.main(["--arch", arch, "--device", str(dev)])
+        except SystemExit as e:
+            print(f"[{arch}] launch.serve.main refused: {e}", flush=True)
+        else:
+            fail(f"launch.serve.main served {arch}, a modality-frontend arch")
+
+    cfg32 = cut_copy(full)
+    params, batch = prefill_inputs(torch, dev, cfg32, 1, seed)
+    ratio, path, flips, _ = replayed_pair(
+        torch, cfg32, params, batch, counters,
+        dict(none, flash_attention_call=sum(m in (ATTN, ATTN_LOCAL)
+                                            for m, _ in cfg32.layer_specs)),
+        f"{arch} float32 prefill")
+    if ratio > 1e-4:
+        fail(f"{arch} float32: kernels vs plain at {path} read {ratio} of "
+             "the leaf's max |plain|, above 1e-4")
+    del batch
+    dcfg = drop_free(cfg32)
+    d_ratio, d_ms = decode_vs_prefill(
+        torch, dcfg, params, model_batch(torch, dev, cfg32, 2, L_dec,
+                                         seed + 1), counters, none)
+    if d_ratio > 1e-4:
+        fail(f"{arch} float32: decode vs prefill logits read {d_ratio} of "
+             "the max, above 1e-4")
+    if text:
+        gap, _ = serve_f32(torch, dev, dcfg, params, 2,
+                           SERVE_29["requests"] - 1, SERVE_29["greedy_tokens"],
+                           SERVE_29["max_len"])
+    print(f"[{arch}] float32 copy cut to {cfg32.n_layers} layers "
+          f"({len(cfg32.prefix)} prefix + {cfg32.n_layers - len(cfg32.prefix)}"
+          f" of the pattern), drawn in float32: prefill B 1, L {PROMPT} "
+          f"kernels vs plain (tokens routed otherwise {flips}) worst leaf "
+          f"{ratio} ({path}; gate 1e-4); decode vs prefill (B 2, L {L_dec}) "
+          f"{d_ratio} (gate 1e-4), the decode step {d_ms} ms"
+          + (f"; the batcher (2 slots, {SERVE_29['requests'] - 1} requests x "
+             f"{SERVE_29['greedy_tokens']} tokens) == greedy decoding "
+             f"through forward (smallest top-2 gap {gap})" if text else "")
+          + f"; {time.perf_counter() - t_arch:.1f} s for {arch}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def engine_counters() -> tuple:
@@ -4870,6 +5153,24 @@ def main() -> None:
         phase_pred(torch, dev, shards, g3, g3_params, counters, smi)
     del g3_params
     print(f"[serving] phases 26, 27, 28 took {t26:.1f}, {t27:.1f}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 29. the seven other architectures at full width -----------------
+    t0 = time.perf_counter()
+    gc.collect()            # the earlier phases' engines hold cycles
+    torch.cuda.empty_cache()
+    print(f"[time] phase 29 starts with {torch.cuda.memory_allocated()} "
+          "bytes allocated on the card", flush=True)
+    per_arch = {}
+    for arch, n_layers, L_dec in ARCHS_29:
+        stamp(f"29 {arch}", t_start)
+        per_arch[arch] = phase_arch(torch, dev, arch, n_layers, L_dec,
+                                    m_counters + (mlstm_chunkwise_call,), smi)
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += sum(per_arch.values())
+            row["archs"] = per_arch     # each model's counted launches
+    print(f"[time] phase 29 (seven architectures) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)

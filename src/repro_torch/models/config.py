@@ -4,11 +4,12 @@
 One :class:`ModelConfig` describes an architecture as a cyclic *pattern*
 of (mixer, mlp) layer specs — dense/GQA attention with global or
 sliding-window masks, fine-grained MoE, Mamba, mLSTM and sLSTM mixers —
-plus optional unscanned ``prefix`` layers (e.g. gemma3's leftover local
-layers).  The fields are ``repro``'s, so one configuration describes the
-same model in both packages; the modality fields are kept for that,
-though this package builds only attention, Mamba, MoE, mLSTM and sLSTM
-layers.
+plus optional unscanned ``prefix`` layers (e.g. deepseek's first dense
+layer, gemma3's leftover local layers) and the modality head
+(multi-codebook for audio, embedding-stub inputs for VLM).  The fields
+are ``repro``'s, so one configuration describes the same model in both
+packages.  :class:`ShapeConfig` and ``SHAPES`` are ``repro``'s assigned
+input-shape cells.
 """
 from __future__ import annotations
 
@@ -143,6 +144,10 @@ class ModelConfig:
         from repro_torch.models.model import count_params    # lazy import
         return count_params(self)
 
+    def n_active_params(self) -> int:
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
     def validate(self) -> "ModelConfig":
         assert self.n_heads % self.n_kv_heads == 0
         _ = self.n_scan
@@ -156,3 +161,39 @@ class ModelConfig:
         if any(m == ATTN_LOCAL for m, _ in self.layer_specs):
             assert self.window is not None
         return self
+
+    def has_mixer(self, kind: str) -> bool:
+        return any(m == kind for m, _ in self.layer_specs)
+
+    @property
+    def long_context_ok(self) -> bool:
+        """Criterion for the long_500k shape: archs with recurrent or
+        sliding-window mixers run (sub-quadratic state growth); *pure*
+        global full-attention archs skip."""
+        return any(m in (MAMBA, MLSTM, SLSTM, ATTN_LOCAL)
+                   for m, _ in self.layer_specs)
+
+    @property
+    def pure_recurrent(self) -> bool:
+        return not any(m in (ATTN, ATTN_LOCAL) for m, _ in self.layer_specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -1,6 +1,7 @@
 """Block-pattern language model (the port of ``repro.models.model``:
-parameter and cache tables, ``forward``, ``make_prefill_step`` and the
-one-token ``make_decode_step``; training comes with a later slice).
+parameter and cache tables, ``forward``, ``make_prefill_step``, the
+one-token ``make_decode_step`` and the modality stub ``input_specs``;
+training comes with a later slice).
 
 A model is ``ModelConfig.prefix + pattern * n_scan`` (mixer, mlp) layers.
 The parameter tree is ``repro``'s: unscanned ``prefix/l{i}`` layers and
@@ -28,7 +29,7 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM,
-                                       MOE, SLSTM, ModelConfig)
+                                       MOE, SLSTM, ModelConfig, ShapeConfig)
 from repro_torch.models.params import ParamSpec, Path, count, unflatten
 
 # --------------------------------------------------------------------------
@@ -257,6 +258,12 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
                       for p, s in cache_specs(cfg, B, S).items()})
 
 
+def abstract_cache(cfg: ModelConfig, B: int, S: int) -> Dict:
+    """``init_cache``'s tree on the meta device: exact shapes and dtypes,
+    no storage (``repro``'s ``abstract_cache``)."""
+    return init_cache(cfg, B, S, device="meta")
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
@@ -475,3 +482,36 @@ def make_decode_step(cfg: ModelConfig, use_kernel: Optional[bool] = None):
                               use_kernel, caches, pos)
         return _head(cfg, params, x), caches
     return decode
+
+
+# --------------------------------------------------------------------------
+# Input specs (the modality frontend stub: audio archs receive codebook
+# token frames, vision archs precomputed patch/text embeddings)
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """The inputs of one shape cell as meta tensors (``repro``'s
+    ``input_specs``): a train step's batch and labels and its step
+    counter, a prefill's batch, or a decode step's one-token batch, its
+    caches of ``seq_len`` positions and the per-row positions."""
+    B, L = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(sh, dtype=i32):
+        return torch.empty(sh, dtype=dtype, device="meta")
+
+    def tok(b, l):
+        if cfg.embed_inputs:
+            return {"embeds": spec((b, l, cfg.d_model), cfg.cdtype)}
+        if cfg.n_codebooks > 1:
+            return {"tokens": spec((b, l, cfg.n_codebooks))}
+        return {"tokens": spec((b, l))}
+
+    if shape.kind == "train":
+        lab = (B, L, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, L)
+        return {"batch": {**tok(B, L), "labels": spec(lab)}, "step": spec(())}
+    if shape.kind == "prefill":
+        return {"batch": tok(B, L)}
+    # decode: one new token against a cache of length L
+    return {"batch": tok(B, 1), "caches": abstract_cache(cfg, B, L),
+            "pos": spec((B,))}

@@ -18,6 +18,7 @@ from repro_torch.kernels.round_fuse.ops import fused_stages  # noqa: E402
 from repro_torch.kernels.sched_pop.kernel import sched_pop_call  # noqa: E402
 from repro_torch.kernels.sched_pop.ops import sched_pop  # noqa: E402
 from repro_torch.kernels.selective_scan.kernel import RING_STEPS  # noqa: E402
+from model_batches import batch_np  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -619,12 +620,16 @@ def _fa_inputs(dev, seed, B, H, KV, L, Dh, dtype, transposed=False):
 @pytest.mark.parametrize("B,H,KV,L,Dh,win", [
     (1, 2, 2, 128, 64, None), (2, 4, 2, 256, 128, None),
     (1, 4, 1, 256, 64, 64), (2, 2, 2, 128, 32, 32), (1, 8, 4, 128, 64, None),
-    (2, 4, 1, 77, 256, 13), (1, 3, 1, 1, 16, None), (1, 4, 2, 200, 24, None)])
+    (2, 4, 1, 77, 256, 13), (1, 3, 1, 1, 16, None), (1, 4, 2, 200, 24, None),
+    (1, 24, 2, 300, 128, None), (2, 12, 1, 129, 128, 64),
+    (1, 32, 32, 200, 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, H, KV, L, Dh, win,
                                               dtype):
     """At the sweep of tests/test_kernels.py and odd shapes, the
-    (B, H, L, Dh) tensors read through transposed views."""
+    (B, H, L, Dh) tensors read through transposed views; among them
+    mistral-large's GQA group of 12 at Dh 128 and musicgen's 32 heads of
+    Dh 64."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
     q, k, v = _fa_inputs(dev, L + Dh, B, H, KV, L, Dh, dtype, True)
     got = flash_attention_blhd(q, k, v, window=win)
@@ -685,10 +690,12 @@ def test_flash_attention_bf16_band_edges(dev, B, H, KV, L, Dh, win):
 
 @pytest.mark.parametrize("B,H,KV,L,Dh,win", [
     (1, 4, 1, 1024, 256, 512), (1, 8, 2, 1024, 128, None),
-    (2, 4, 2, 1024, 64, 300)])
+    (2, 4, 2, 1024, 64, 300), (1, 24, 2, 1024, 128, None),
+    (1, 32, 32, 1024, 64, None)])
 def test_flash_attention_bf16_one_ulp_per_head_width(dev, B, H, KV, L, Dh,
                                                      win):
-    """One mid-size shape per head-dim template (64, 128, 256)."""
+    """One mid-size shape per head-dim template (64, 128, 256), and the
+    GQA group of 12 and 32 heads of Dh 64 of mistral-large and musicgen."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
     q, k, v = _fa_inputs(dev, Dh, B, H, KV, L, Dh, torch.bfloat16)
     got = flash_attention_blhd(q, k, v, window=win)
@@ -784,22 +791,41 @@ def _flat(t):
         if isinstance(t, dict) else [t]
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b",
-                                  "xlstm-1.3b"])
+def _smoke_batch(cfg, B, L, seed):
+    """``batch_np``'s prompt batch as tensors on the CPU."""
+    return {k: torch.from_numpy(v)
+            for k, v in batch_np(cfg, B, L, seed).items()}
+
+
+SMOKE_ARCHS = ["deepseek-moe-16b", "gemma3-1b", "gemma3-27b",
+               "jamba-v0.1-52b", "minitron-8b", "mistral-large-123b",
+               "musicgen-large", "qwen2-moe-a2.7b", "qwen2-vl-72b",
+               "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
 def test_smoke_prefill_on_the_card_equals_the_cpu(dev, arch):
     """The SMOKE model's prefill through the kernels on the card against
-    its plain versions on the CPU, from the same weights, in float32."""
+    its plain versions on the CPU, from the same weights, in float32;
+    one attention launch per attention layer."""
     from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_call)
+    from repro_torch.models.config import ATTN, ATTN_LOCAL
     from repro_torch.models.model import make_prefill_step, param_specs
     from repro_torch.models.params import init_params
     cfg = get_smoke(arch)
     params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
                          "cpu")
-    tok = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 64)))
+    batch = _smoke_batch(cfg, 2, 64, 1)
     step = make_prefill_step(cfg)
-    want = step(params, {"tokens": tok})
-    got = step(_tree(lambda t: t.to(dev), params), {"tokens": tok.to(dev)})
+    want = step(params, batch)
+    flash_attention_call.launches = 0
+    got = step(_tree(lambda t: t.to(dev), params),
+               _tree(lambda t: t.to(dev), batch))
+    torch.cuda.synchronize()
+    assert flash_attention_call.launches == sum(
+        m in (ATTN, ATTN_LOCAL) for m, _ in cfg.layer_specs)
     for g, w in zip(_flat({"l": got[0], "c": got[1]}),
                     _flat({"l": want[0], "c": want[1]})):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-3)
@@ -1022,8 +1048,7 @@ def test_supervised_drill_on_the_card_equals_the_cpu(dev, tmp_path):
 
 
 # ------------------------------------------------------------------ serving
-@pytest.mark.parametrize("arch", ["gemma3-1b", "jamba-v0.1-52b",
-                                  "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
 def test_smoke_decode_on_the_card_equals_the_cpu(dev, arch):
     """The SMOKE model's decode step (float32) on the card against the
     CPU from the same prefill caches: logits and every returned cache
@@ -1037,17 +1062,17 @@ def test_smoke_decode_on_the_card_equals_the_cpu(dev, arch):
     cfg = get_smoke(arch)
     params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
                          "cpu")
-    tok = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 40)))
-    _, caches = make_prefill_step(cfg, pad_to=48)(params,
-                                                  {"tokens": tok[:, :-1]})
+    batch = _smoke_batch(cfg, 2, 40, 1)
+    _, caches = make_prefill_step(cfg, pad_to=48)(
+        params, _tree(lambda t: t[:, :-1], batch))
     pos = torch.full((2,), 39, dtype=torch.int32)
     step = make_decode_step(cfg)
-    want = step(params, caches, {"tokens": tok[:, -1:]}, pos)
+    last = _tree(lambda t: t[:, -1:].contiguous(), batch)
+    want = step(params, caches, last, pos)
     selective_scan_call.launches = 0
     got = step(_tree(lambda t: t.to(dev), params),
                _tree(lambda t: t.to(dev), caches),
-               {"tokens": tok[:, -1:].to(dev)}, pos.to(dev))
+               _tree(lambda t: t.to(dev), last), pos.to(dev))
     torch.cuda.synchronize()
     assert selective_scan_call.launches == sum(
         m == MAMBA for m, _ in cfg.layer_specs)

@@ -1,11 +1,12 @@
 """The port's one-token decode step against the JAX package's, on the CPU.
 
-For each of the three architectures the port builds (SMOKE configs,
-float32), ``repro``'s weights reach the port through
-``params_from_numpy`` and ``repro``'s prefill caches of the first L - 1
-tokens through ``caches_from_numpy``; the port's ``make_decode_step`` on
-token L - 1 must give ``repro``'s logits and every cache leaf ``repro``
-returns (KV rings, Mamba conv and ssm, mLSTM C, n, m, sLSTM h, c, n, m)
+For each of the ten architectures (SMOKE configs, float32), ``repro``'s
+weights reach the port through ``params_from_numpy`` and ``repro``'s
+prefill caches of the first L - 1 positions through
+``caches_from_numpy``; the port's ``make_decode_step`` on position L - 1
+(a token id, musicgen's four codebook ids, qwen2-vl's input embedding
+with its three equal M-RoPE position streams) must give ``repro``'s
+logits and every cache leaf ``repro`` returns (KV rings, Mamba conv and ssm, mLSTM C, n, m, sLSTM h, c, n, m)
 within 1e-4 of the leaf's max |value|.  Also: the port's prefill +
 decode equals its own full forward at 2e-3 (``tests/test_models.py:58``),
 gemma's local ring decoding past three windows (``:92``), ``mlstm_step``
@@ -30,9 +31,20 @@ from repro_torch.models import model as PM  # noqa: E402
 from repro_torch.models import xlstm as PX  # noqa: E402
 from repro_torch.models.convert import (caches_from_numpy,  # noqa: E402
                                         caches_to_numpy, params_from_numpy)
+from model_batches import batch_np  # noqa: E402
 
-ARCHS = ["gemma3-1b", "jamba-v0.1-52b", "xlstm-1.3b"]
+ARCHS = JC.list_archs()
 B, L = 2, 40        # gemma's SMOKE window is 16: its local rings wrap
+
+
+def _jax(batch, sl):
+    return {k: jnp.asarray(v[:, sl], jnp.float32 if k == "embeds" else
+                           jnp.int32) for k, v in batch.items()}
+
+
+def _torch(batch, sl):
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:, sl]))
+            for k, v in batch.items()}
 
 
 def _leaves(tree, prefix=()):
@@ -60,15 +72,14 @@ def decoded(request):
     arch = request.param
     jcfg, pcfg = JC.get_smoke(arch), PC.get_smoke(arch)
     params = JM.init_params(JM.param_specs(jcfg), jax.random.PRNGKey(11))
-    tokens = np.random.default_rng(12).integers(0, jcfg.vocab, (B, L))
+    batch = batch_np(jcfg, B, L, 12)
     pos = np.full((B,), L - 1, np.int32)
     _, jcaches = jax.jit(JM.make_prefill_step(jcfg, pad_to=L))(
-        params, {"tokens": jnp.asarray(tokens[:, :-1], jnp.int32)})
+        params, _jax(batch, slice(None, -1)))
     want_logits, want_caches = jax.jit(JM.make_decode_step(jcfg))(
-        params, jcaches, {"tokens": jnp.asarray(tokens[:, -1:], jnp.int32)},
-        jnp.asarray(pos))
+        params, jcaches, _jax(batch, slice(-1, None)), jnp.asarray(pos))
     np_caches = jax.tree.map(np.asarray, jcaches)
-    return dict(arch=arch, pcfg=pcfg, tokens=tokens, pos=pos,
+    return dict(arch=arch, pcfg=pcfg, batch=batch, pos=pos,
                 p_params=params_from_numpy(jax.tree.map(np.asarray, params)),
                 np_caches=np_caches,
                 want_logits=np.asarray(want_logits, np.float32),
@@ -81,9 +92,11 @@ def test_decode_matches_repro(decoded):
     caches = caches_from_numpy(d["np_caches"])
     before = {p: t.clone() for p, t in _leaves(caches)}
     logits, new = decode(PM.cast_params(d["pcfg"], d["p_params"]), caches,
-                         {"tokens": torch.from_numpy(d["tokens"][:, -1:])},
+                         _torch(d["batch"], slice(-1, None)),
                          torch.from_numpy(d["pos"]))
-    assert tuple(logits.shape) == (B, 1, d["pcfg"].vocab)
+    cfg = d["pcfg"]
+    head = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    assert tuple(logits.shape) == (B, 1, *head, cfg.vocab)
     _close_to_max(logits.numpy(), d["want_logits"], 1e-4, "logits")
     got = dict(_leaves(caches_to_numpy(new)))
     want = dict(_leaves(d["want_caches"]))
@@ -100,12 +113,11 @@ def test_decode_matches_own_forward(decoded):
     == its full forward's last position (``tests/test_models.py:58``)."""
     d = decoded
     cfg, params = d["pcfg"], d["p_params"]
-    toks = torch.from_numpy(d["tokens"])
-    full, _, _ = PM.forward(cfg, params, tokens=toks)
+    full, _, _ = PM.forward(cfg, params, **_torch(d["batch"], slice(None)))
     _, caches = PM.make_prefill_step(cfg, pad_to=L)(
-        params, {"tokens": toks[:, :-1]})
+        params, _torch(d["batch"], slice(None, -1)))
     lg, _ = PM.make_decode_step(cfg)(PM.cast_params(cfg, params), caches,
-                                     {"tokens": toks[:, -1:]},
+                                     _torch(d["batch"], slice(-1, None)),
                                      torch.from_numpy(d["pos"]))
     np.testing.assert_allclose(lg[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=2e-3, atol=2e-3)

@@ -1,12 +1,13 @@
 """The slice as a whole: the port's ``make_prefill_step`` against the JAX
-package's, on the CPU, for the three model families the port builds.
+package's, on the CPU, for all ten architectures (SMOKE sizes).
 
 The parameters are drawn by ``repro.models.init_params`` and handed to
 the port as numpy (``params_from_numpy``), so both packages run the same
-weights on the same prompt; the last position's logits and every cache
-leaf (local rings rolled, global caches, Mamba conv and ssm states, the
-mLSTM (conv, C, n, m) and sLSTM (conv, h, c, n, m) states) must match at
-1e-4 in float32.  Also: ``param_specs`` and ``count_params`` of
+weights on the same prompt (token ids, musicgen's four codebook ids a
+position, qwen2-vl's input embeddings); the last position's logits
+(musicgen's per codebook) and every cache leaf (local rings rolled,
+global caches, Mamba conv and ssm states, the mLSTM (conv, C, n, m) and
+sLSTM (conv, h, c, n, m) states) must match at 1e-4 in float32.  Also: ``param_specs`` and ``count_params`` of
 the full published configurations equal ``repro``'s, ``cast_params``
 gives every leaf ``repro``'s dtype in bf16 (stacked vectors cast, prefix
 vectors kept float32), the registry and the configurations equal
@@ -31,8 +32,9 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (caches_to_numpy,  # noqa: E402
                                         params_from_numpy)
 from repro_torch.models.params import init_params  # noqa: E402
+from model_batches import batch_np  # noqa: E402
 
-ARCHS = ["gemma3-1b", "jamba-v0.1-52b", "xlstm-1.3b"]
+ARCHS = JC.list_archs()
 
 
 def _leaves(tree, prefix=()):
@@ -48,13 +50,15 @@ def test_smoke_prefill_matches_repro(arch):
     jcfg, pcfg = JC.get_smoke(arch), PC.get_smoke(arch)
     params = JM.init_params(JM.param_specs(jcfg), jax.random.PRNGKey(1))
     B, L = 2, 48       # gemma's window is 16: its local caches roll
-    tokens = np.random.default_rng(2).integers(0, jcfg.vocab, (B, L))
+    batch = batch_np(jcfg, B, L, 2)
     want_logits, want_caches = jax.jit(JM.make_prefill_step(jcfg))(
-        params, {"tokens": jnp.asarray(tokens, jnp.int32)})
+        params, {k: jnp.asarray(v, jnp.float32 if k == "embeds" else
+                                jnp.int32) for k, v in batch.items()})
     got_logits, got_caches = PM.make_prefill_step(pcfg)(
         params_from_numpy(jax.tree.map(np.asarray, params)),
-        {"tokens": torch.from_numpy(tokens)})
-    assert tuple(got_logits.shape) == (B, jcfg.vocab)
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    head = (pcfg.n_codebooks,) if pcfg.n_codebooks > 1 else ()
+    assert tuple(got_logits.shape) == (B, *head, jcfg.vocab)
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
                                rtol=1e-4, atol=1e-4)
     got = dict(_leaves(caches_to_numpy(got_caches)))
@@ -125,7 +129,7 @@ def test_registry_and_configs_match_repro():
         for get in ("get_config", "get_smoke"):
             assert dataclasses.asdict(getattr(PC, get)(arch)) == \
                 dataclasses.asdict(getattr(JC, get)(arch))
-    assert set(PC.list_archs()) == set(ARCHS)
+    assert PC.list_archs() == JC.list_archs() == ARCHS and len(ARCHS) == 10
     with pytest.raises(KeyError, match="unknown arch"):
         PC.get_config("no-such-arch")
 

@@ -5,7 +5,10 @@ requests on two slots and then one more give ``repro``'s tokens, which
 are also the port's sequential greedy decode through ``forward``
 (``tests/test_training_serving.py:92``, ``:103``); on xlstm-1.3b SMOKE a
 request that takes a freed slot continues that slot's recurrent state in
-both packages alike (``repro`` resets only the position).  Greedy tokens
+both packages alike (``repro`` resets only the position); on the other
+five text architectures' SMOKE configs four requests on two slots give
+``repro``'s tokens, and both packages refuse musicgen-large and
+qwen2-vl-72b in the batcher and the launcher.  Greedy tokens
 are exact only where the logits do not tie, so each run first asserts
 the reference's smallest top-2 gap (the run is well posed).  The
 throttle hook's pass-over (``tests/test_qos.py:391``).
@@ -191,6 +194,61 @@ def test_slot_reuse_carries_recurrent_state(models):
         np.testing.assert_allclose(node, w, rtol=1e-4,
                                    atol=1e-4 * np.abs(w).max(),
                                    err_msg=str(path))
+
+
+TEXT_ARCHS = ["deepseek-moe-16b", "qwen2-moe-a2.7b", "minitron-8b",
+              "gemma3-27b", "mistral-large-123b"]
+MODALITY_ARCHS = ["musicgen-large", "qwen2-vl-72b"]
+
+
+@pytest.fixture(scope="module", params=TEXT_ARCHS)
+def text_model(request):
+    """One text architecture's SMOKE weights, drawn by ``repro``, in both
+    packages, and one jitted ``repro`` decode for its batchers."""
+    arch = request.param
+    jcfg, pcfg = JC.get_smoke(arch), PC.get_smoke(arch)
+    jp = JM.init_params(JM.param_specs(jcfg), jax.random.PRNGKey(9))
+    return {arch: (jcfg, pcfg, jp,
+                   params_from_numpy(jax.tree.map(np.asarray, jp)),
+                   jax.jit(JM.make_decode_step(jcfg)))}
+
+
+def test_text_arch_batcher_matches_repro(text_model):
+    """Four requests on two slots of each of the other five text
+    architectures (MoE with shared experts and a sigmoid-gated shared
+    expert, an ungated squared-ReLU MLP, 5:1 local:global attention with
+    QK-norm, GQA 4:1): the port's tokens are ``repro``'s."""
+    arch = next(iter(text_model))
+    jb, pb = _batchers(text_model, arch)
+    gaps = _record_gaps(jb)
+    reqs = [(0, (3, 40), 3), (1, (5, 9, 17), 4), (2, (11, 4), 3),
+            (3, (7,), 2)]
+    want = _serve(jb, J, reqs)
+    assert min(gaps) > GAP, f"reference top-2 gap {min(gaps)}"
+    got = _serve(pb, T, reqs)
+    assert got == want and sorted(got) == [0, 1, 2, 3]
+    assert [len(got[r[0]]) for r in reqs] == [r[2] for r in reqs]
+    assert pb.ticks == jb.ticks
+
+
+@pytest.mark.parametrize("arch", MODALITY_ARCHS)
+def test_modality_archs_are_refused(arch, monkeypatch):
+    """musicgen-large (codebook frames) and qwen2-vl-72b (embeddings) are
+    not served by the token batcher: both packages' ``ContinuousBatcher``
+    refuse the config and both launchers exit with the same message."""
+    from repro.launch import serve as JS
+    from repro_torch.launch import serve as PS
+    for pkg, cfg in ((JB, JC.get_smoke(arch)), (PB, PC.get_smoke(arch))):
+        with pytest.raises(AssertionError, match="token-in/token-out"):
+            pkg.ContinuousBatcher(cfg, None, slots=2, max_len=8)
+    argv = ["--arch", arch, "--smoke"]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    with pytest.raises(SystemExit) as want:
+        JS.main()
+    with pytest.raises(SystemExit) as got:
+        PS.main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "modality-frontend arch" in str(got.value)
 
 
 def test_batcher_throttle_passes_over_blocked_requests():
