@@ -315,6 +315,38 @@ Phases, each printed on its own line:
     published size where it fits the card (all but mistral-large-123b);
     ``launch.serve.main`` must refuse musicgen-large and qwen2-vl-72b.
 
+30. The training path at full width.  G-T1: each model kernel's
+    ``autograd.Function`` (the kernel forward, the plain version's
+    gradient backward) against ``torch.autograd.grad`` through the plain
+    version with one fixed upstream gradient: ``flash_attention`` at
+    gemma3-1b's global and local layers (B 2, L 4,096, 4 heads over 1, Dh
+    256) in bf16 and float32, ``selective_scan`` at jamba's Mamba layer
+    (B 1, L 4,096, Di 8,192, S 16, one launch per chunk of 256) and
+    ``mlstm_chunkwise`` at xlstm-1.3b's layer (B 2, H 4, L 4,096, Dh
+    1,024) with float32 and bf16 q, k, v: forward outputs at
+    ``tests/test_kernels.py``'s tolerances, attention and mLSTM
+    gradients bitwise, the scan's adjoint recurrence within 1e-4 of each
+    input's max.  G-T2: one gemma3-1b train step at its published size
+    (26 layers, grad_accum 4, remat; 8 sequences of 4,096 tokens) through
+    the kernels and through their plain versions from one state (the
+    seeded weights after one shared step), in bf16 and in float32: the
+    loss and every leaf of the gradients, of AdamW's new moments mu and
+    sqrt(nu) and of the updated parameters within 0.1 and 1e-4 of the
+    leaf's max |plain| (the parameters over
+    the elements whose plain gradient exceeds that fraction of its
+    leaf's max, gemma's norm gains taken as the model reads them, 1 + g:
+    AdamW moves each element by about the learning rate whatever its
+    gradient's size, so an element whose gradient is inside the gate's
+    tolerance of zero, or a gain a few rates from zero, can differ by a
+    fair part of a rate; the ratio over every element is printed), no
+    gradient None or zero where the plain one is not, 200 attention
+    launches a step (4 x (26 + the 24 that remat recomputes)).  G-T3: ``launch.train.main``
+    for 3 steps at that size: finite losses, 200 launches a step, ms per
+    step, tokens/s, peak memory.  G-T4: checkpoint and resume on the card
+    at 8 layers of gemma3-1b (2 steps into a directory, a new trainer
+    restoring and running 2 more, against 4 straight; rtol 1e-4, atol
+    1e-5, bitwise equality printed), under deterministic algorithms.
+
 The last three lines are the card (``nvidia-smi``), a JSON object with
 one entry per kernel, and ``{"ok": true, "device": {...}}``.  Any
 mismatch, build failure or launch error exits non-zero before them.
@@ -2966,11 +2998,21 @@ def time_model_kernels(torch, dev, errs, launches, fa_build, scan_build):
     q, k, v = fa_inputs(torch, gen, B, H, KV, L, Dh, torch.float32)
     launch, _ = plan_flash_attention(q, k, v, window=win)
     ms, host, prof = device_ms(torch, launch, "flash_attention_kernel", 20)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib, lib_host = time_launches([lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True)], 20, warmup=3)
+    n_bytes, n_ops = attention_cost(B, H, KV, L, Dh, win, 4)
+    bound, by = bound_ms(n_bytes, n_ops, 0.0)
     print(f"[timing] flash_attention at {tag} in float32 (the float32 "
           f"prefill's inputs): kernel {ms} ms (CUDA events over 20 "
           f"back-to-back launches; host enqueue {host} ms), profiler {prof} "
-          "ms", flush=True)
-    del q, k, v
+          f"ms; scaled_dot_product_attention in float32 {lib} ms (host "
+          f"{lib_host} ms); bound {bound} ms ({by}; {n_ops} operations at "
+          f"the float32 peak outside the tensor cores, {n_bytes} bytes) = "
+          f"{bound / ms} of the bound", flush=True)
+    layers[f"{tag} float32"] = dict(ms=ms, profiler_ms=prof, bound_ms=bound,
+                                    bound_by=by, library_ms=lib)
+    del q, k, v, qh, kh, vh
     B, L, Di, S = SCAN_LAYER
     args = scan_inputs(torch, gen, B, L, Di, S)
     launch, _ = plan_selective_scan(*args)
@@ -3171,7 +3213,7 @@ def layer_walk(torch, cfg, params, batch, gate, tag, record=()):
     x = M._embed(cfg, params, batch["tokens"])
     recorded, worst, slstm = {}, (0.0, ""), []
     for i in range(cfg.n_scan):
-        slot = M._tree_map(lambda t: t[i], params["scan"])
+        slot = M.tree_map(lambda t: t[i], params["scan"])
         for j, spec in enumerate(cfg.pattern):
             idx = i * cfg.period + j
             lp = slot[f"s{j}"]
@@ -3376,10 +3418,10 @@ def phase_g3(torch, cfg32, params, batch):
     max |float64|.  Gate: K <= 10 P + 1e-6."""
     import dataclasses
 
-    from repro_torch.models.model import _tree_map, make_prefill_step
+    from repro_torch.models.model import make_prefill_step, tree_map
     cfg1 = dataclasses.replace(cfg32, n_layers=cfg32.period).validate()
-    p1 = dict(params, scan=_tree_map(lambda t: t[:1], params["scan"]))
-    p64 = _tree_map(lambda t: t.double(), p1)
+    p1 = dict(params, scan=tree_map(lambda t: t[:1], params["scan"]))
+    p64 = tree_map(lambda t: t.double(), p1)
     t0 = time.perf_counter()
     truth = make_prefill_step(dataclasses.replace(
         cfg1, compute_dtype="float64"), use_kernel=False)(p64, batch)
@@ -4882,6 +4924,429 @@ def phase_arch(torch, dev, arch, n_layers, L_dec, counters, smi):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 30: the training path at full width
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH = 8            # global batch: train_4k's 256 cut to 8 (PERF.md §4)
+# gemma3-1b's published grad_accum of 4 micro-batches, each launching
+# attention at its 26 layers and again at the 24 scan layers that remat
+# recomputes in the backward
+TRAIN_FA_PER_STEP = 4 * (26 + 24)
+TRAIN_STEPS = 3            # G-T3
+RESUME_LAYERS = 8          # G-T4: gemma3-1b's prefix and first period
+SCAN_GRAD = (1, PROMPT, 8192, 16, 256)     # jamba's Mamba layer, ssm_chunk
+MLSTM_GRAD = (2, 4, PROMPT, 1024, 256)     # xlstm-1.3b's mLSTM layer, chunk
+
+
+def same_bits(name, got, want) -> None:
+    """Fail unless ``got`` and ``want`` are equal bit for bit."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if got is None or got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: no gradient, or another shape or dtype than the "
+             "plain version's")
+    a, b = (t.contiguous().view(ints[t.element_size()]) for t in (got, want))
+    n = int((a != b).sum())
+    if n:
+        fail(f"{name}: {n} of {a.numel()} elements differ bitwise from the "
+             "gradient through the plain version")
+
+
+def grad_ratio(name, got, want, tol) -> float:
+    """Fail unless ``got`` is a finite gradient within ``tol`` of the
+    plain one's max |want|; return the ratio."""
+    import torch
+    if got is None or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: no gradient or a non-finite one")
+    r = ((got.float() - want.float()).abs().max()
+         / want.float().abs().max().clamp_min(1e-30)).item()
+    if r > tol:
+        fail(f"{name}: gradient {r} of its max |plain| from the plain "
+             f"version's, above {tol}")
+    return r
+
+
+def phase_train_kernels(torch, dev):
+    """G-T1: each model kernel's ``autograd.Function`` (kernel forward,
+    plain-gradient backward) against ``torch.autograd.grad`` through the
+    plain version, at its model's layer shape, with one fixed upstream
+    gradient.  Forward outputs at tests/test_kernels.py's tolerances;
+    attention and mLSTM gradients bitwise (their backward recomputes the
+    same plain expression); the scan's adjoint recurrence within 1e-4 of
+    each input's max against autograd through the plain loop.  Returns
+    ({kernel: forward max |diff|}, {kernel: counted launches})."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attention.ops import flash_attention_blhd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mlstm_chunk.kernel import (LAUNCHES_PER_CALL,
+                                                        mlstm_chunkwise_call)
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunkwise
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise_ref
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_call
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    errs = {"flash_attention": 0.0}
+    counters = (flash_attention_call, selective_scan_call,
+                mlstm_chunkwise_call)
+    for c in counters:
+        c.launches = 0
+    for tag, B, H, KV, L, Dh, win in FA_FULL[:2]:
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            t0 = time.perf_counter()
+            q, k, v = (t.requires_grad_() for t in fa_inputs(
+                torch, gen, B, H, KV, L, Dh, dtype))
+            up = torch.randn((B, L, H * Dh), generator=gen,
+                             device=dev).to(dtype)
+            out = flash_attention_blhd(q, k, v, window=win)
+            got = torch.autograd.grad(out, (q, k, v), up)
+            plain = attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                window=win).transpose(1, 2).to(dtype).reshape(out.shape)
+            want = torch.autograd.grad(plain, (q, k, v), up)
+            err = close_or_fail(f"flash_attention forward with grad at {tag} "
+                                f"{dtype}", out, plain, tol)
+            for n, g, w in zip("qkv", got, want):
+                same_bits(f"flash_attention d{n} at {tag} {dtype}", g, w)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            print(f"[train] G-T1 flash_attention at {tag} (B {B}, L {L}, H "
+                  f"{H} over {KV}, Dh {Dh}, window {win}, {dtype}): forward "
+                  f"max |diff| {err} (gate {tol} + {tol} |plain|), dq, dk, dv "
+                  f"bitwise equal to autograd through the plain version; "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            del q, k, v, up, out, got, plain, want
+    B, L, Di, S, ck = SCAN_GRAD
+    t0 = time.perf_counter()
+    ins = [t.requires_grad_() for t in scan_inputs(torch, gen, B, L, Di, S)]
+    gy = torch.randn((B, L, Di), generator=gen, device=dev)
+    gh = torch.randn((B, Di, S), generator=gen, device=dev)
+    y, h = selective_scan(*ins, chunk=ck)
+    got = torch.autograd.grad((y, h), ins, (gy, gh))
+    t_fn = time.perf_counter() - t0
+    y0, h0 = selective_scan_ref(*ins)
+    want = torch.autograd.grad((y0, h0), ins, (gy, gh))
+    errs["selective_scan"] = max(
+        close_or_fail("selective_scan y with grad", y, y0, 1e-4),
+        close_or_fail("selective_scan h with grad", h, h0, 1e-4))
+    ratios = [grad_ratio(f"selective_scan d{n}", g, w, 1e-4)
+              for n, g, w in zip(("a", "bx", "c", "h0"), got, want)]
+    print(f"[train] G-T1 selective_scan at jamba-v0.1-52b's Mamba layer (B "
+          f"{B}, L {L}, Di {Di}, S {S}, chunk {ck}: "
+          f"{selective_scan_call.launches} launches): forward max |diff| "
+          f"{errs['selective_scan']} (gate 1e-4), the adjoint recurrence's "
+          f"da, dbx, dc, dh0 at {ratios} of each input's max |plain| against "
+          f"autograd through the plain loop (gate 1e-4); Function forward + "
+          f"backward {t_fn:.2f} s, the plain loop's in "
+          f"{time.perf_counter() - t0 - t_fn:.2f} s", flush=True)
+    del ins, gy, gh, y, h, got, y0, h0, want
+    B, H, L, Dh, ck = MLSTM_GRAD
+    errs["mlstm_chunkwise"] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        t0 = time.perf_counter()
+        ins = [t.requires_grad_() for t in mlstm_inputs(torch, gen, B, H, L,
+                                                        Dh, dtype=dtype)]
+        up = torch.randn((B, H, L, Dh), generator=gen, device=dev)
+        h, _ = mlstm_chunkwise(*ins, chunk=ck)
+        got = torch.autograd.grad(h, ins, up)
+        h0, _ = mlstm_chunkwise_ref(*ins, None, ck)
+        want = torch.autograd.grad(h0, ins, up)
+        err = close_or_fail(f"mlstm_chunkwise forward with grad {dtype}", h,
+                            h0, MLSTM_TOL)
+        for n, g, w in zip(("q", "k", "v", "i", "f"), got, want):
+            same_bits(f"mlstm_chunkwise d{n} {dtype}", g, w)
+        errs["mlstm_chunkwise"] = max(errs["mlstm_chunkwise"], err)
+        print(f"[train] G-T1 mlstm_chunkwise at xlstm-1.3b's mLSTM layer (B "
+              f"{B}, H {H}, L {L}, Dh {Dh}, chunk {ck}, q, k, v {dtype}): "
+              f"forward max |diff| {err} (gate {MLSTM_TOL} + {MLSTM_TOL} "
+              f"|plain|), dq, dk, dv, di, df bitwise equal to autograd "
+              f"through the plain version; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del ins, up, h, got, h0, want
+    launches = {c.__name__: c.launches for c in counters}
+    want_n = {"flash_attention_call": 4,
+              "selective_scan_call": SCAN_GRAD[1] // SCAN_GRAD[4],
+              "mlstm_chunkwise_call": 2 * LAUNCHES_PER_CALL}
+    if launches != want_n:
+        fail(f"G-T1 launches {launches}, expected {want_n}")
+    torch.cuda.empty_cache()
+    return errs, launches
+
+
+def train_inputs(torch, dev, cfg, seed, steps=(0,)):
+    """Float32 master weights drawn on the card from ``seed`` and
+    SyntheticCorpus batches (TRAIN_BATCH x PROMPT) of ``steps``."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params
+    params = init_params(param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed), dev)
+    corpus = SyntheticCorpus(vocab=cfg.vocab, seq_len=PROMPT,
+                             global_batch=TRAIN_BATCH, seed=seed)
+    return params, [{k: torch.from_numpy(v).to(dev)
+                     for k, v in corpus.batch(s).items()} for s in steps]
+
+
+def updated_ratio(gp, pk, pp, gains, gate):
+    """The updated parameters' worst leaf, kernels against plain: max
+    |diff| / max |plain| with its path, over the elements whose plain
+    gradient exceeds ``gate`` of its leaf's max |gradient|, the leaves of
+    ``gains`` (gemma's norm gains, zero at the start, which the model
+    reads as 1 + g) taken as 1 + g; and the count of elements left out.
+    AdamW divides each element's step by that element's own gradient
+    scale, so an element whose gradient is inside the gradient gate's
+    tolerance of zero (an embedding row of a token the batch lacks), or a
+    gain a few learning rates from zero, can move by a fair part of a
+    learning rate either way between two runs whose gradients pass."""
+    worst, left_out = (0.0, ""), 0
+    for (path, w), (_, a), (_, b) in zip(leaves(gp), leaves(pk), leaves(pp)):
+        a, b = a.float(), b.float()
+        if path in gains:
+            a, b = 1 + a, 1 + b
+        keep = w.float().abs() > gate * w.float().abs().max()
+        left_out += int((~keep).sum())
+        if bool(keep.any()):
+            d = (a - b).abs()[keep].max()
+            worst = max(worst, ((d / b.abs().max().clamp_min(1e-30)).item(),
+                                path))
+    return (*worst, left_out)
+
+
+def moments_ratio(got, want):
+    """The new AdamW moments' worst leaves, kernels against plain: (max
+    |diff| / max |plain| of mu, its path, the same of sqrt(nu), its path).
+    mu moves with the gradient, (1 - b1) g, and sqrt(nu), the scale AdamW
+    divides by, differs from run to run by at most sqrt(1 - b2) times the
+    gradients' difference (the shared b2 nu of the last step only shrinks
+    it), so both are held at the gradient gate's tolerance: unlike the
+    updated parameters they carry the gradients' size, so a fault in how
+    AdamW is wired shows there."""
+    worst_mu = worst_nu = (0.0, "")
+    for (path, a), (_, b) in zip(leaves(got.mu), leaves(want.mu)):
+        r = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst_mu = max(worst_mu, (r, path))
+    for (path, a), (_, b) in zip(leaves(got.nu), leaves(want.nu)):
+        a, b = a.sqrt(), b.sqrt()
+        r = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst_nu = max(worst_nu, (r, path))
+    return (*worst_mu, *worst_nu)
+
+
+def phase_train_step(torch, dev):
+    """G-T2: one gemma3-1b train step at full width (26 layers, grad_accum
+    4, remat, L PROMPT, TRAIN_BATCH sequences), through the kernels and
+    through their plain versions, from one state: the seeded weights after
+    one shared kernel step (so the compared AdamW update runs on non-zero
+    moments and is no sign of a gradient).  In bf16 and, on the same
+    weights, in float32 (``compute_dtype="float32"``): the loss and every
+    leaf of the gradients, of AdamW's new mu and sqrt(nu)
+    (``moments_ratio``) and of the updated parameters within 0.1 (bf16)
+    and 1e-4 (float32) of the leaf's max |plain| (the parameters where
+    the plain gradient exceeds that fraction of its leaf's max, gemma's
+    norm gains as the model reads them, 1 + g: ``updated_ratio``); no
+    leaf's gradient None
+    (the step raises) or zero where the plain one is not; the kernel step
+    launches flash_attention TRAIN_FA_PER_STEP times, the plain one
+    never.  Returns the counted launches."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.models.model import (make_grads_fn, make_train_step,
+                                          param_specs)
+    cfg = get_config(TRAIN_ARCH)
+    if (cfg.grad_accum, cfg.remat, cfg.n_layers) != (4, True, 26):
+        fail(f"{TRAIN_ARCH}: grad_accum {cfg.grad_accum}, remat {cfg.remat}, "
+             f"{cfg.n_layers} layers; phase 30 expects 4, True, 26")
+    params, (b0, b1) = train_inputs(torch, dev, cfg, SEED + 30, (0, 1))
+    gains = {"/".join(p) for p, spec in param_specs(cfg).items()
+             if cfg.gemma_norm and spec.init == "zeros"}
+    n_params = sum(t.numel() for _, t in leaves(params))
+    lr = torch.tensor(3e-4, device=dev)
+    counted = 0
+    t0 = time.perf_counter()
+    flash_attention_call.launches = 0
+    params, opt, m = make_train_step(cfg)(params, optim.adamw_init(params),
+                                          b0, torch.tensor(0, device=dev))
+    torch.cuda.synchronize()
+    if flash_attention_call.launches != TRAIN_FA_PER_STEP:
+        fail(f"the shared bf16 step launched flash_attention "
+             f"{flash_attention_call.launches} times, expected "
+             f"{TRAIN_FA_PER_STEP}")
+    counted += flash_attention_call.launches
+    print(f"[train] G-T2 shared first step (bf16, kernels) from the seeded "
+          f"state: loss {float(m['loss'])}, grad norm "
+          f"{float(m['grad_norm'])}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for dtype, gate in (("bfloat16", 0.1), ("float32", 1e-4)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        runs = {}
+        for kernels in (True, False):
+            flash_attention_call.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = make_grads_fn(c, use_kernel=None if kernels
+                                        else False)(params, b1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = flash_attention_call.launches
+            if n != (TRAIN_FA_PER_STEP if kernels else 0):
+                fail(f"G-T2 {dtype} {'kernel' if kernels else 'plain'} step "
+                     f"launched flash_attention {n} times")
+            counted += n
+            runs[kernels] = (float(loss), grads, dt,
+                             torch.cuda.max_memory_allocated())
+            del grads
+        (lk, gk, tk, mk), (lp, gp, tp, mp) = runs[True], runs[False]
+        del runs
+        if abs(lk - lp) > gate * abs(lp):
+            fail(f"G-T2 {dtype}: loss {lk} through the kernels, {lp} plain")
+        for (path, g), (_, w) in zip(leaves(gk), leaves(gp)):
+            if not bool(g.any()) and bool(w.any()):
+                fail(f"G-T2 {dtype}: gradient of {path} is zero through the "
+                     "kernels and not through the plain versions: the graph "
+                     "is cut")
+        rg, pg = worst_leaf(f"G-T2 {dtype} gradients", gk, gp)
+        # AdamW on each run's gradients; the kernel run's gradients go
+        # before the plain run's update, so at most three float32 trees of
+        # the model's size live beside the weights and the shared moments
+        t0 = time.perf_counter()
+        pk, opt_k, m_k = optim.adamw_update(gk, opt, params, lr)
+        torch.cuda.synchronize()
+        t_adam = time.perf_counter() - t0
+        del gk
+        pp, opt_p, m_p = optim.adamw_update(gp, opt, params, lr)
+        nk, np_ = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+        rmu, pmu, rnu, pnu = moments_ratio(opt_k, opt_p)
+        del opt_k, opt_p
+        rp, pth, left_out = updated_ratio(gp, pk, pp, gains, gate)
+        r_all, p_all, _ = updated_ratio(gp, pk, pp, gains, 0.0)
+        r_raw, p_raw = worst_leaf(f"G-T2 {dtype} updated parameters", pk, pp)
+        if max(rg, rmu, rnu, rp) > gate:
+            fail(f"G-T2 {dtype}: kernels vs plain read {rg} ({pg}) on the "
+                 f"gradients, {rmu} ({pmu}) on mu, {rnu} ({pnu}) on "
+                 f"sqrt(nu) and {rp} ({pth}) on the updated parameters, "
+                 f"above {gate}")
+        print(f"[train] G-T2 {TRAIN_ARCH} train step in {dtype} ({c.n_layers} "
+              f"layers, grad_accum {c.grad_accum}, remat, B {TRAIN_BATCH}, L "
+              f"{PROMPT}): loss {lk} through the kernels, {lp} plain; grad "
+              f"norm {nk} / {np_}; worst leaf max |diff| / max |plain| "
+              f"{rg} on the gradients ({pg}), {rmu} on AdamW's new mu "
+              f"({pmu}), {rnu} on its sqrt(nu) ({pnu}), {rp} on the updated "
+              f"parameters "
+              f"({pth}; gemma's norm gains as 1 + g, {left_out} of "
+              f"{n_params} elements left out, their plain gradient below "
+              f"{gate} of the leaf's max) (gate {gate}; over every element "
+              f"with a non-zero gradient {r_all} at {p_all}, and the gains "
+              f"as stored {r_raw} at {p_raw}); the step's gradients "
+              f"{tk * 1e3:.1f} ms through the kernels, {tp * 1e3:.1f} ms "
+              f"plain, AdamW {t_adam * 1e3:.1f} ms (host clock, "
+              f"synchronised); peak memory of the gradients {mk} / {mp} "
+              f"bytes", flush=True)
+        del gp, pk, pp
+        torch.cuda.empty_cache()
+    return counted
+
+
+def phase_train_launcher(torch, dev, smi):
+    """G-T3: ``repro_torch.launch.train.main`` at full width (gemma3-1b's
+    published config, TRAIN_STEPS steps of TRAIN_BATCH x PROMPT tokens, no
+    checkpoint directory): every loss finite, TRAIN_FA_PER_STEP attention
+    launches a step; ms per step, tokens/s and peak memory printed with
+    the card.  Returns the counted launches."""
+    import math
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.launch.train import main as train_main
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_call.launches = 0
+    t0 = time.perf_counter()
+    out = train_main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(PROMPT)])
+    wall = time.perf_counter() - t0
+    n = flash_attention_call.launches
+    if n != TRAIN_STEPS * TRAIN_FA_PER_STEP:
+        fail(f"G-T3: flash_attention launched {n} times in {TRAIN_STEPS} "
+             f"steps, expected {TRAIN_STEPS * TRAIN_FA_PER_STEP}")
+    h = out["history"]
+    if out["final_step"] != TRAIN_STEPS or not all(
+            math.isfinite(m["loss"]) for m in h):
+        fail(f"G-T3: {out['final_step']} steps, losses "
+             f"{[m['loss'] for m in h]}")
+    ms = [m["step_time_s"] * 1e3 for m in h]
+    tokens = TRAIN_BATCH * PROMPT
+    print(f"[train] G-T3 launch.train.main --arch {TRAIN_ARCH} --steps "
+          f"{TRAIN_STEPS} --batch {TRAIN_BATCH} --seq {PROMPT} (bf16, "
+          f"grad_accum 4, remat): losses {[m['loss'] for m in h]}; ms per "
+          f"step {ms} (host clock around each step, its metrics read back), "
+          f"{tokens / (ms[-1] / 1e3)} tokens/s at the last step; peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes; {n} flash_attention "
+          f"launches; {wall:.1f} s with the weights' draw; {smi}",
+          flush=True)
+    return n, dict(ms_per_step=ms, tokens_per_s=tokens / (ms[-1] / 1e3),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_train_resume(torch, dev):
+    """G-T4: checkpoint and resume on the card, as
+    tests/test_training_serving.py's resume test: gemma3-1b cut to its
+    prefix and first period (RESUME_LAYERS at full width), 2 steps into a
+    checkpoint directory, a new Trainer restoring step 2 and running 2
+    more, against a straight run of 4; the resumed losses within rtol
+    1e-4, atol 1e-5 of the straight run's (and whether they are bitwise
+    equal printed), under deterministic algorithms.  Each run writes only
+    its final synchronous save.  Returns the counted launches."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.training import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    ck = SCRATCH / "phase30_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def run(steps, ckpt_dir):
+        tc = TrainConfig(steps=steps, seq_len=PROMPT,
+                         global_batch=TRAIN_BATCH, ckpt_dir=ckpt_dir,
+                         ckpt_every=100, log_every=100)
+        t0 = time.perf_counter()
+        out = Trainer(cfg, tc, log=lambda s: print(f"[train] G-T4 {s}",
+                                                   flush=True)).run()
+        return out, time.perf_counter() - t0
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    flash_attention_call.launches = 0
+    try:
+        first, t1 = run(2, str(ck))
+        resumed, t2 = run(4, str(ck))
+        straight, t3 = run(4, None)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    per_step = 4 * (2 + 2 * (RESUME_LAYERS - 2))
+    if flash_attention_call.launches != 8 * per_step:
+        fail(f"G-T4: flash_attention launched {flash_attention_call.launches}"
+             f" times in 8 steps, expected {8 * per_step}")
+    if first["final_step"] != 2 or resumed["final_step"] != 4 or [
+            m["step"] for m in resumed["history"]] != [2, 3]:
+        fail("G-T4: the second trainer did not resume at step 2")
+    got = [m["loss"] for m in resumed["history"]]
+    want = [m["loss"] for m in straight["history"][2:]]
+    if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+        fail(f"G-T4: resumed losses {got}, straight {want}")
+    print(f"[train] G-T4 checkpoint and resume at {RESUME_LAYERS} layers of "
+          f"{TRAIN_ARCH} (full width, B {TRAIN_BATCH}, L {PROMPT}): resumed "
+          f"losses {got}, straight {want} (rtol 1e-4, atol 1e-5; bitwise "
+          f"equal: {got == want}); 2 steps + save_sync {t1:.1f} s, restore + "
+          f"2 steps + save_sync {t2:.1f} s, straight 4 steps {t3:.1f} s",
+          flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    return flash_attention_call.launches
+
+
 def engine_counters() -> tuple:
     """The launch-counted wrappers of the engine's round kernels."""
     from repro_torch.kernels.round_fuse.kernel import (apply_programs_call,
@@ -5171,6 +5636,32 @@ def main() -> None:
             row["launches"] += sum(per_arch.values())
             row["archs"] = per_arch     # each model's counted launches
     print(f"[time] phase 29 (seven architectures) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    stamp("30", t_start)
+    # ---- 30. the training path at full width ------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_errs, t_launches = phase_train_kernels(torch, dev)
+    fa_train = t_launches["flash_attention_call"]
+    fa_train += phase_train_step(torch, dev)
+    n, train_row = phase_train_launcher(torch, dev, smi)
+    fa_train += n
+    fa_train += phase_train_resume(torch, dev)
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += fa_train
+            row["train_launches"] = fa_train
+            row["train"] = train_row
+        for kernel, call in (("selective_scan", "selective_scan_call"),
+                             ("mlstm_chunkwise", "mlstm_chunkwise_call")):
+            if row["name"] == kernel:
+                row["launches"] += t_launches[call]
+                row["train_launches"] = t_launches[call]
+        if row["name"] in t_errs:
+            row["max_abs_err"] = max(row["max_abs_err"], t_errs[row["name"]])
+    print(f"[time] phase 30 (the training path) took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(smi)

@@ -14,10 +14,23 @@ def selective_scan_ref(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     h_{t-1} + bx_t, y_t = h_t . c_t over S.  Returns y (B, L, Di) and the
     final state (B, Di, S), float32.  Every state h_t is kept (a tensor
     of a's size), so the loop over time is two elementwise launches a
-    step and the contraction with c is one batched product."""
+    step and the contraction with c is one batched product.  With grad
+    enabled and an input that requires it, the states are stacked from
+    the loop instead of written in place, so autograd runs through the
+    loop (the plain version's gradient); the values are the same.  The
+    steps' inputs come from one ``unbind`` each, whose backward stacks
+    their gradients once (indexing a step would give every step's
+    backward a full-size zero tensor)."""
     a, bx, c = a.float(), bx.float(), c.float()
-    h_all = torch.empty_like(a)
     h = h0.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (a, bx, c, h)):
+        hs = []
+        for a_t, bx_t in zip(a.unbind(1), bx.unbind(1)):
+            h = a_t * h + bx_t
+            hs.append(h)
+        return torch.einsum("blds,bls->bld", torch.stack(hs, 1), c), h
+    h_all = torch.empty_like(a)
     for t in range(a.shape[1]):
         torch.mul(a[:, t], h, out=h_all[:, t])
         h = h_all[:, t]

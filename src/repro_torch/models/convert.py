@@ -6,7 +6,10 @@ leaf: ``params_from_numpy`` takes ``repro``'s parameter tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``), ``caches_from_numpy``
 does the same for a cache tree (``repro``'s prefill caches continue in
 the port's decode step) and ``caches_to_numpy`` gives the port's caches
-back as numpy for comparison.
+back as numpy for comparison.  ``train_state_from_numpy`` takes
+``repro``'s train state (``{"params", "opt": AdamWState, "comp", "step"}``
+of numpy arrays) so both packages can train from one state, and
+``train_state_to_numpy`` gives the port's back.
 """
 from __future__ import annotations
 
@@ -48,3 +51,36 @@ def caches_to_numpy(tree: Dict) -> Dict:
     leaves come back as float32 (exactly: every bf16 is a float32)."""
     return _map(lambda t: (t.float() if t.dtype == torch.bfloat16 else t)
                 .detach().cpu().numpy(), tree)
+
+
+def train_state_from_numpy(state: Dict, device="cpu") -> Dict:
+    """``repro``'s train state of numpy arrays (``jax.tree.map(np.asarray,
+    state)``: the optimiser state a NamedTuple with ``mu``, ``nu`` and
+    ``count``, the compression state one with ``error`` or None) -> the
+    port's, tensors on ``device`` with ``step`` kept as a numpy int32, as
+    both trainers keep it.  The checkpoint leaf names stay ``repro``'s."""
+    from repro_torch.optim import AdamWState, CompressionState
+    opt, comp = state["opt"], state.get("comp")
+    return {
+        "params": params_from_numpy(state["params"], device),
+        "opt": AdamWState(params_from_numpy(opt.mu, device),
+                          params_from_numpy(opt.nu, device),
+                          _to_torch(opt.count, device)),
+        "comp": (None if comp is None else
+                 CompressionState(params_from_numpy(comp.error, device))),
+        "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def train_state_to_numpy(state: Dict) -> Dict:
+    """The port's train state -> the same structure (the port's
+    NamedTuples) of numpy arrays on the host: the inverse of
+    :func:`train_state_from_numpy`."""
+    from repro_torch.optim import AdamWState, CompressionState
+    opt, comp = state["opt"], state.get("comp")
+    return {
+        "params": caches_to_numpy(state["params"]),
+        "opt": AdamWState(caches_to_numpy(opt.mu), caches_to_numpy(opt.nu),
+                          caches_to_numpy(opt.count)),
+        "comp": (None if comp is None else
+                 CompressionState(caches_to_numpy(comp.error))),
+        "step": np.asarray(int(state["step"]), np.int32)}

@@ -1,7 +1,7 @@
 """Block-pattern language model (the port of ``repro.models.model``:
-parameter and cache tables, ``forward``, ``make_prefill_step``, the
-one-token ``make_decode_step`` and the modality stub ``input_specs``;
-training comes with a later slice).
+parameter and cache tables, ``forward``, the loss and the train step,
+``make_prefill_step``, the one-token ``make_decode_step`` and the
+modality stub ``input_specs``).
 
 A model is ``ModelConfig.prefix + pattern * n_scan`` (mixer, mlp) layers.
 The parameter tree is ``repro``'s: unscanned ``prefix/l{i}`` layers and
@@ -18,19 +18,31 @@ A decode step passes every layer its cache: attention decodes against
 its KV ring and mLSTM steps its (C, n, m) in plain torch, as ``repro``
 does; a Mamba layer continues its (conv, ssm) state through the
 selective-scan kernel at L = 1, the one kernel on the decode path.
+
+Training differentiates the same forward with autograd: each kernel's
+wrapper goes through an ``autograd.Function`` whose forward is the kernel
+and whose backward is the plain version's gradient (the scan's: ``repro``'s
+adjoint recurrence), since ``repro`` has no backward kernel either.
+``remat`` recomputes each scan slot's layers in the backward
+(``torch.utils.checkpoint``), as ``repro``'s ``jax.checkpoint`` of the
+scan body does, so the kernels launch again there.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import optim
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention, layers, moe, ssm, xlstm
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MLSTM,
                                        MOE, SLSTM, ModelConfig, ShapeConfig)
-from repro_torch.models.params import ParamSpec, Path, count, unflatten
+from repro_torch.models.params import (ParamSpec, Path, count, tree_leaves,
+                                       tree_map, tree_paths, unflatten)
+
 
 # --------------------------------------------------------------------------
 # Parameter spec tables
@@ -268,12 +280,6 @@ def abstract_cache(cfg: ModelConfig, B: int, S: int) -> Dict:
 # Forward
 # --------------------------------------------------------------------------
 
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _apply_layer(cfg, spec, lp, x, positions, collect, cache_pad_to,
                  use_kernel, cache=None, decode_pos=None):
     mixer, mlp = spec
@@ -377,16 +383,18 @@ def cast_leaf(cfg: ModelConfig, p: torch.Tensor) -> torch.Tensor:
 def cast_params(cfg: ModelConfig, params):
     """Mixed precision as ``repro``'s ``cast_params``: matrices (and every
     stacked leaf) in the compute dtype, unstacked vectors in float32."""
-    return _tree_map(lambda p: cast_leaf(cfg, p), params)
+    return tree_map(lambda p: cast_leaf(cfg, p), params)
 
 
 def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
            collect_cache: bool, cache_pad_to: Optional[int],
-           use_kernel: Optional[bool], caches=None, decode_pos=None):
+           use_kernel: Optional[bool], caches=None, decode_pos=None,
+           remat: bool = False):
     """Embedding and every layer, on cast parameters: (x before the final
     norm, caches in ``repro``'s tree layout or None, aux loss).  With
     ``caches`` each layer continues from its own cache at the per-row
-    positions ``decode_pos`` (B,) and the new caches are returned."""
+    positions ``decode_pos`` (B,) and the new caches are returned.
+    ``remat`` checkpoints each scan slot's layers (not the prefix's)."""
     ref = tokens if tokens is not None else embeds
     B, L = ref.shape[0], ref.shape[1]
     dev = ref.device
@@ -414,11 +422,7 @@ def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
         new_caches["prefix"][key] = nc
         aux = aux + a
 
-    per_iter = []
-    for i in range(cfg.n_scan):
-        slot_params = _tree_map(lambda leaf: leaf[i], params["scan"])
-        slot_caches = (_tree_map(lambda leaf: leaf[i], caches["scan"])
-                       if caches is not None else None)
+    def slot(x, aux, slot_params, slot_caches):
         outs = {}
         for j, spec in enumerate(cfg.pattern):
             key = f"s{j}"
@@ -428,6 +432,20 @@ def _trunk(cfg: ModelConfig, params, tokens, embeds, positions,
                                     use_kernel, c, decode_pos)
             outs[key] = nc
             aux = aux + a
+        return x, aux, outs
+
+    # one unbind a stacked leaf: its backward stacks the slots' gradients
+    per_slot = tree_map(torch.unbind, params["scan"])
+    per_iter = []
+    for i in range(cfg.n_scan):
+        slot_params = tree_map(lambda leaves: leaves[i], per_slot)
+        slot_caches = (tree_map(lambda leaf: leaf[i], caches["scan"])
+                       if caches is not None else None)
+        if remat:
+            x, aux, outs = checkpoint(slot, x, aux, slot_params, slot_caches,
+                                      use_reentrant=False)
+        else:
+            x, aux, outs = slot(x, aux, slot_params, slot_caches)
         per_iter.append(outs)
     new_caches["scan"] = {
         key: {name: torch.stack([it[key][name] for it in per_iter])
@@ -441,16 +459,141 @@ def forward(cfg: ModelConfig, params, *, tokens=None, embeds=None,
             positions=None, caches=None, decode_pos=None,
             collect_cache: bool = False,
             cache_pad_to: Optional[int] = None,
+            remat: bool = False,
             use_kernel: Optional[bool] = None):
     """Full-sequence forward from position 0, or with ``caches`` one
     decode token per row at ``decode_pos`` (B,).  Returns (logits,
     caches_or_None, aux_loss); ``collect_cache`` returns every layer's
-    prefill cache in ``repro``'s tree layout."""
+    prefill cache in ``repro``'s tree layout.  ``remat`` recomputes each
+    scan slot in the backward (training)."""
     params = cast_params(cfg, params)
     x, caches, aux = _trunk(cfg, params, tokens, embeds, positions,
                             collect_cache, cache_pad_to, use_kernel,
-                            caches, decode_pos)
+                            caches, decode_pos, remat)
     return _head(cfg, params, x), caches, aux
+
+
+# --------------------------------------------------------------------------
+# Loss & step builders
+# --------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy in float32 over the labels >= 0 (musicgen:
+    logits (B, L, K, V) against codebook labels (B, L, K)).  ``repro``
+    takes the label's logit by an iota compare and sum, for a vocab dim
+    that may be sharded; a gather gives the same value without the
+    (B, L, V) mask."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    n = torch.clamp(mask.sum(), min=1)
+    return torch.sum(torch.where(mask, lse - ll, 0.0)) / n
+
+
+def _split_micro(batch: Dict, accum: int) -> List[Dict]:
+    """The batch as ``accum`` micro-batches of contiguous rows (``repro``'s
+    reshape to (accum, B / accum, ...))."""
+    def sp(x):
+        B = x.shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} is no multiple of grad_accum "
+                             f"{accum}")
+        return x.reshape(accum, B // accum, *x.shape[1:])
+    split = {k: sp(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(accum)]
+
+
+def make_loss_fn(cfg: ModelConfig, use_kernel: Optional[bool] = None):
+    """``loss_fn(params, batch)``: the LM loss of ``batch["labels"]`` plus,
+    for MoE models, ``router_aux_coef`` times the mean load-balance loss
+    over the MoE layers; the forward rematerialises as ``cfg.remat``
+    says."""
+    n_moe = sum(1 for _, m in cfg.layer_specs if m == MOE)
+
+    def loss_fn(params, batch):
+        logits, _, aux = forward(
+            cfg, params, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), remat=cfg.remat,
+            use_kernel=use_kernel)
+        loss = lm_loss(cfg, logits, batch["labels"])
+        if n_moe:
+            loss = loss + cfg.router_aux_coef * aux / n_moe
+        return loss
+    return loss_fn
+
+
+def make_grads_fn(cfg: ModelConfig, use_kernel: Optional[bool] = None):
+    """``grads_of(params, batch) -> (loss, grads)``: the loss and its
+    gradient with respect to every parameter leaf, over ``cfg.grad_accum``
+    micro-batches as ``repro`` does: the losses and the float32 gradients
+    summed from zeros in micro-batch order, then times 1 / accum.  A leaf
+    that gets no gradient raises: the graph was cut (a kernel launched
+    outside its ``autograd.Function``)."""
+    loss_fn = make_loss_fn(cfg, use_kernel)
+    accum = max(cfg.grad_accum, 1)
+
+    def value_and_grad(params, batch):
+        paths = tree_paths(params)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = loss_fn(unflatten(dict(zip(paths, leaves))), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        cut = [path for path, g in zip(paths, grads) if g is None]
+        if cut:
+            raise RuntimeError(f"no gradient reached {cut}: the graph is "
+                               "cut")
+        return loss.detach(), unflatten(dict(zip(paths, grads)))
+
+    def grads_of(params, batch):
+        if accum == 1:
+            return value_and_grad(params, batch)
+        dev = tree_leaves(params)[0].device
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=dev), params)
+        for mb in _split_micro(batch, accum):
+            l, g = value_and_grad(params, mb)
+            loss = loss + l
+            tree_map(lambda a, b: a.add_(b), grads, g)
+            del g
+        inv = 1.0 / accum
+        return loss * inv, tree_map(lambda g: g * inv, grads)
+    return grads_of
+
+
+def make_train_step(cfg: ModelConfig, *, lr_fn=None, compress: bool = False):
+    """``step_fn(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``; with ``compress`` ``step_fn(params, opt_state, comp_state,
+    batch, step) -> (params, opt_state, comp_state, metrics)``, the
+    gradients int8-compressed with error feedback before AdamW.  ``lr_fn``
+    maps the 0-dim int32 step to the rate (3e-4 when None).  The given
+    state is not written; metrics are 0-dim tensors ``loss``,
+    ``grad_norm`` and ``clip_scale``."""
+    grads_of = make_grads_fn(cfg)
+    if lr_fn is None:
+        lr_fn = lambda step: torch.tensor(3e-4, dtype=torch.float32)  # noqa: E731
+
+    def update(params, opt_state, grads, step, loss):
+        params, opt_state, m = optim.adamw_update(grads, opt_state, params,
+                                                  lr_fn(step))
+        m["loss"] = loss
+        return params, opt_state, m
+
+    if compress:
+        def step_fn(params, opt_state, comp_state, batch, step):
+            loss, grads = grads_of(params, batch)
+            grads, comp_state = optim.compressed_gradients(grads, comp_state)
+            params, opt_state, m = update(params, opt_state, grads, step,
+                                          loss)
+            return params, opt_state, comp_state, m
+        return step_fn
+
+    def step_fn(params, opt_state, batch, step):
+        loss, grads = grads_of(params, batch)
+        return update(params, opt_state, grads, step, loss)
+    return step_fn
 
 
 def make_prefill_step(cfg: ModelConfig, pad_to: Optional[int] = None,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,29 @@ def unflatten(flat: Dict[Path, object]) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return tree
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of dict trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_paths(tree, prefix: Path = ()) -> List[Path]:
+    """The paths of a dict tree's leaves, keys sorted at every level (the
+    checkpoint flatten's order, ``jax.tree.leaves``' order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k],
+                                                             prefix + (k,))]
+    return [prefix]
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a dict tree in ``tree_paths``' order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def init_params(specs: Dict[Path, ParamSpec], generator: torch.Generator,

@@ -1,11 +1,19 @@
-"""Mamba (S6) selective-state-space mixer on the prefill path (the port of
-``repro.models.ssm``; the custom-VJP training scan comes with the
-training slice).
+"""Mamba (S6) selective-state-space mixer (the port of
+``repro.models.ssm``).
 
 ``mamba_block`` builds the discretised a = exp(dt * A) and bx = dt * x * B
 as (B, L, Di, S) float32 tensors, as ``repro`` does, and solves the
 recurrence through ``ssm_scan`` -> ``kernels.selective_scan``: the CUDA
 kernel on the card, its sequential plain version on the CPU.
+
+``repro`` has two training forms, picked by ``cfg.ssm_mode``: "assoc"
+differentiates its chunked associative scan, "seq" its sequential scan
+with the custom VJP ``_seq_scan_bwd`` (an adjoint recurrence that
+recomputes h per chunk of ``cfg.ssm_chunk``).  Both compute the same
+function; in the port both run the kernel forward and that adjoint
+recurrence as backward (``kernels.selective_scan.ops.SelectiveScanFn``,
+chunked by ``cfg.ssm_chunk``), so gradients equal ``repro``'s in either
+mode up to rounding.
 """
 from __future__ import annotations
 
@@ -19,15 +27,15 @@ from repro_torch.models import layers
 
 
 def ssm_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
-             h0: torch.Tensor, *, use_kernel: Optional[bool] = None
+             h0: torch.Tensor, chunk: Optional[int] = None, *,
+             use_kernel: Optional[bool] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The linear recurrence with the output contraction.  a, bx:
     (B, L, Di, S); c: (B, L, S); h0: (B, Di, S).  Returns y (B, L, Di)
-    float32 and the final state (B, Di, S).  ``repro`` solves it in
-    chunks of ``cfg.ssm_chunk`` by an associative scan; both the kernel
-    and its plain version here run it as one sequential pass, so the
-    chunk has no part in the port."""
-    return selective_scan(a, bx, c, h0, use_kernel=use_kernel)
+    float32 and the final state (B, Di, S).  Without grad the kernel and
+    its plain version run it as one sequential pass; with grad ``chunk``
+    is the backward's recompute chunk (``repro``'s ``ssm_chunk``)."""
+    return selective_scan(a, bx, c, h0, chunk=chunk, use_kernel=use_kernel)
 
 
 def _proj_dtbc(cfg, p, xc):
@@ -69,7 +77,8 @@ def mamba_block(cfg, p: Dict, x: torch.Tensor, cache: Optional[Dict] = None,
 
     h0 = (cache["ssm"].float() if cache else
           torch.zeros((B, Di, S), dtype=torch.float32, device=x.device))
-    y, h_final = ssm_scan(a_bar, bx, cc, h0, use_kernel=use_kernel)
+    y, h_final = ssm_scan(a_bar, bx, cc, h0, cfg.ssm_chunk,
+                          use_kernel=use_kernel)
     del a_bar, bx                                       # 2 x B L Di S floats
     y = y + p["D"].float() * xcf
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]

@@ -139,7 +139,10 @@ def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state, n_heads: int):
 
     The loop keeps the state as (H, B, Dh) and the gates as (L, H, B, 4,
     Dh), so a step is one batched product with the (H, Dh, 4 Dh)
-    recurrent matrix and elementwise work, with no copy of the state."""
+    recurrent matrix and elementwise work, with no copy of the state.
+    The gates are unbound once and the steps' outputs stacked at the end,
+    so a backward runs one stack and one unbind, not a zero tensor of
+    all L steps per step."""
     B, L, D4 = gates_x.shape
     D = D4 // 4
     H = n_heads
@@ -153,19 +156,20 @@ def slstm_scan(gates_x: torch.Tensor, r: torch.Tensor, state, n_heads: int):
         return s.to(wd).reshape(B, H, Dh).transpose(0, 1).contiguous()
 
     h, c, n, m = (heads(s) for s in state)
-    hs = torch.empty((L, H, B, Dh), dtype=wd, device=gates_x.device)
-    for t in range(L):
+    hs = []
+    for gx_t in gx.unbind(0):
         rec = torch.bmm(h, r2).view(H, B, 4, Dh)
-        gi, gf, gz, go = (gx[t] + rec).unbind(2)
+        gi, gf, gz, go = (gx_t + rec).unbind(2)
         fm = gf + m
         m1 = torch.maximum(fm, gi)
         ip = torch.exp(gi - m1)
         fp = torch.exp(fm - m1)
         c = fp * c + ip * torch.tanh(gz)
         n = fp * n + ip
-        h = torch.div(torch.sigmoid(go) * c, torch.clamp(n, min=1e-6),
-                      out=hs[t])
+        h = torch.sigmoid(go) * c / torch.clamp(n, min=1e-6)
+        hs.append(h)
         m = m1
+    hs = torch.stack(hs)
 
     def flat(s):                                        # (H, B, Dh) -> (B, D)
         return s.transpose(0, 1).reshape(B, D)

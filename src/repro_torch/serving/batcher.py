@@ -60,7 +60,7 @@ class ContinuousBatcher:
             "batcher serves token-in/token-out archs"
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = M._tree_map(lambda t: t.to(self.device),
+        self.params = M.tree_map(lambda t: t.to(self.device),
                                   M.cast_params(cfg, params))
         self.slots = slots
         self.max_len = max_len

@@ -215,7 +215,7 @@ def test_float64_model_runs_in_float64():
     tok = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab,
                                                              (2, 32)))
     l32, c32 = PM.make_prefill_step(cfg)(params, {"tokens": tok})
-    p64 = PM._tree_map(lambda t: t.double(), params)
+    p64 = PM.tree_map(lambda t: t.double(), params)
     l64, c64 = PM.make_prefill_step(cfg64)(p64, {"tokens": tok})
     assert l64.dtype == torch.float64
     np.testing.assert_allclose(l64.numpy(), l32.double().numpy(), rtol=1e-4,
@@ -403,7 +403,7 @@ def test_mlstm_block_passes_q_k_v_heads_outermost(dtype, monkeypatch):
 
     monkeypatch.setattr(PX, "mlstm_chunkwise", record)
     B, L = 2, 32
-    params = PM._tree_map(lambda t: t.to(dtype), params_from_numpy(p))
+    params = PM.tree_map(lambda t: t.to(dtype), params_from_numpy(p))
     x = torch.from_numpy(_x(L, B, L, pcfg.d_model)).to(dtype)
     PX.mlstm_block(pcfg, params, x)
     (qkv,) = seen
